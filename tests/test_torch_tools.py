@@ -1,0 +1,142 @@
+"""The port's workload generator (shotgun_tpu_torch.utils.synth), its
+reference built straight from genome arrays, and the profiling tool
+(shotgun_tpu_torch.tools.profile_align) on the CPU."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from shotgun_tpu.aligner import PseudoAlignment as JaxPseudoAlignment
+from shotgun_tpu.index.build import build_index
+from shotgun_tpu.io.data_file import FASTAFile, open_fastq_stream
+from shotgun_tpu.reference import KmerReference as JaxKmerReference
+from shotgun_tpu_torch.aligner import PseudoAlignment
+from shotgun_tpu_torch.io import native_available
+from shotgun_tpu_torch.reference import KmerReference
+from shotgun_tpu_torch.tools import profile_align
+from shotgun_tpu_torch.utils import synth
+
+torch.set_num_threads(2)
+CPU = torch.device("cpu")
+
+
+def _kmers(codes, k):
+    return {codes[i: i + k].tobytes() for i in range(codes.size - k + 1)}
+
+
+def test_make_genomes_strains_share_kmers_and_every_mutation_changes_a_base():
+    rng = np.random.default_rng(0)
+    g = synth.make_genomes(rng, 4, 3000, strains=2, mutation_rate=0.01)
+    assert g.num_records == 4 and g.codes.size == 12000
+    a, b, c = (g.record_codes(i) for i in (0, 2, 1))
+    # 0 and 2 copy one ancestor: each differs from it at ~1% of bases,
+    # so from each other at ~2%; 0 and 1 come from different ancestors
+    assert 0.005 < np.mean(a != b) < 0.04
+    assert np.mean(a != c) > 0.6
+    shared = _kmers(a, 21) & _kmers(b, 21)
+    assert len(shared) > 1000 and not _kmers(a, 21) & _kmers(c, 21)
+    assert g.codes.max() <= 3
+
+
+def test_make_genomes_without_strains_is_the_shared_generator():
+    want = synth.synth_genomes(np.random.default_rng(5), 3, 500)
+    got = synth.make_genomes(np.random.default_rng(5), 3, 500)
+    np.testing.assert_array_equal(got.codes, want.codes)
+    np.testing.assert_array_equal(got.offsets, want.offsets)
+    assert got.descriptions == want.descriptions
+
+
+@pytest.mark.parametrize("error_rate", [0.0, 0.02])
+def test_sample_reads_truth_and_errors(error_rate):
+    rng = np.random.default_rng(1)
+    g = synth.make_genomes(rng, 3, 2000)
+    work = synth.sample_reads(rng, g, 400, 100, error_rate)
+    assert work.codes.shape == (400, 100) and work.genome_of.shape == (400,)
+    # each read is within error_rate of some window of its own genome
+    diffs = []
+    for read, gi in zip(work.codes[:50], work.genome_of[:50]):
+        rec = g.record_codes(int(gi))
+        win = np.lib.stride_tricks.sliding_window_view(rec, 100)
+        diffs.append(int((win != read).sum(axis=1).min()))
+    if error_rate == 0:
+        assert max(diffs) == 0
+    else:
+        assert 0 < np.mean(diffs) < 10
+
+
+def test_write_workload_round_trips_and_reference_from_arrays(tmp_path):
+    rng = np.random.default_rng(2)
+    g = synth.make_genomes(rng, 3, 1500, strains=1, mutation_rate=0.02)
+    work = synth.sample_reads(rng, g, 200, 80, 0.01)
+    fa, fq = str(tmp_path / "g.fa"), str(tmp_path / "r.fq")
+    synth.write_workload(work, fa, fq)
+    from_arrays = KmerReference(21, g).index
+    from_fasta = KmerReference(21, FASTAFile(fa).container).index
+    for name in ("kmer_words", "set_id", "set_masks", "post_offsets"):
+        np.testing.assert_array_equal(getattr(from_arrays, name),
+                                      getattr(from_fasta, name), err_msg=name)
+    assert from_arrays.descriptions == from_fasta.descriptions
+    stream = open_fastq_stream(fq, lazy=True)
+    assert stream is not None and stream.max_len == 80
+
+
+def test_strain_workload_with_errors_matches_jax(tmp_path):
+    """The port's align_stream against the JAX package's on genomes that
+    share most k-mers and reads with errors (ambiguous reads at scale)."""
+    rng = np.random.default_rng(3)
+    g = synth.make_genomes(rng, 6, 4000, strains=2, mutation_rate=0.01)
+    work = synth.sample_reads(rng, g, 600, 150, 0.005)
+    fa, fq = str(tmp_path / "g.fa"), str(tmp_path / "r.fq")
+    synth.write_workload(work, fa, fq)
+    index = build_index(g, 31)
+    jpa = JaxPseudoAlignment(JaxKmerReference(31, _index=index))
+    jpa.align_stream(open_fastq_stream(fq, lazy=True), 1, 1, batch_size=128)
+    pa = PseudoAlignment(KmerReference(31, g), CPU)
+    pa.align_stream(open_fastq_stream(fq, lazy=True), 1, 1, batch_size=128)
+    assert pa.get_summary() == jpa.get_summary()
+    stats = pa.get_summary()["Statistics"]
+    assert stats["ambiguous_mapped_reads"] > 50 and stats["unique_mapped_reads"] > 50
+
+
+def _x(cat, ts, dur, name="k"):
+    return {"ph": "X", "cat": cat, "ts": ts, "dur": dur, "name": name}
+
+
+@pytest.mark.parametrize("events, busy", [
+    ([], 0.0),
+    ([_x("kernel", 0, 10)], 10.0),
+    # overlap and containment count once, gaps not at all
+    ([_x("kernel", 0, 10), _x("gpu_memcpy", 5, 10), _x("kernel", 6, 2),
+      _x("gpu_memset", 30, 5)], 20.0),
+    # host ops, runtime calls and flow events are not device time
+    ([_x("cpu_op", 0, 100), _x("cuda_runtime", 0, 50),
+      {"ph": "f", "cat": "kernel", "ts": 0}, _x("kernel", 40, 4)], 4.0),
+])
+def test_device_busy_is_the_union_of_device_intervals(events, busy):
+    assert profile_align.device_busy_us(events) == busy
+
+
+def test_device_ms_by_name_sums_device_events_largest_first():
+    ev = [_x("kernel", 0, 1000, "a"), _x("kernel", 5, 3000, "b"),
+          _x("kernel", 9, 1000, "a"), _x("cpu_op", 0, 9000, "a")]
+    assert list(profile_align.device_ms_by_name(ev).items()) == [("b", 3.0), ("a", 2.0)]
+
+
+def test_profile_align_runs_on_cpu_and_reports_no_device_metric(capsys, monkeypatch):
+    assert native_available()
+    monkeypatch.delenv(profile_align.FILL_ENV, raising=False)
+    res = profile_align.main([
+        "--device", "cpu", "--genomes", "3", "--genome-len", "4000",
+        "--reads", "500", "--batch", "256", "--repeats", "1", "--strains", "2",
+        "--mutation-rate", "0.01", "--error-rate", "0.005", "--fill-threads", "1"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == json.loads(json.dumps(res))
+    assert "device busy time and idle share: not measured" in "\n".join(out)
+    assert not any(key.startswith("profiled_") for key in res)
+    assert sum(res["statistics"].values()) == 500
+    assert set(res["stream_reads_per_s"]) == {
+        "B=256", "B=256 mkq=30", "B=64", "B=512", "B=256 threads=1"}
+    assert os.environ.get(profile_align.FILL_ENV) is None
