@@ -3,9 +3,11 @@
 
 Same flag surface, validation order, defaulting quirks and error strings
 as the JAX package's CLI, which replicates the reference CLI.  Ported:
-``-t dumpalign`` with ``-r db.kdb --reads`` or ``-g -k --reads`` (the
-``-g`` route builds the database on the host).  The other tasks, and
-``dumpalign -a``, exit non-zero with "not yet ported".
+``-t dumpalign`` with ``-r db.kdb --reads`` or ``-g -k --reads``.  The
+``-g`` route builds the database on the device for genomes of 4-64 Mbp,
+as the JAX package's does (``create_reference``), and on the host
+otherwise.  The other tasks, and ``dumpalign -a``, exit non-zero with
+"not yet ported".
 
 The device comes from ``$SHOTGUN_TPU_TORCH_DEVICE`` (default ``cuda``;
 asking for CUDA without it is an error, never a silent CPU run).
@@ -18,7 +20,7 @@ import gzip
 import json
 import os
 import sys
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -36,13 +38,18 @@ from shotgun_tpu.io.data_file import (
     open_fastq_stream,
 )
 from shotgun_tpu.io.native import NativeParseError
+from shotgun_tpu.io.packing import pack_genomes
 from shotgun_tpu_torch.aligner import PseudoAlignment
-from shotgun_tpu_torch.reference import KDBFormatError, KmerReference
+from shotgun_tpu_torch.reference import PROBE_ENV, KDBFormatError, KmerReference
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.profiling import PROFILER, phase
 
 #: 0 = auto: aligner._auto_batch picks by input size
 DEFAULT_BATCH_SIZE = 0
+#: the device build's genome-size window in bases (the JAX package's,
+#: sized on a TPU); the environment variables below override it
+DEVICE_BUILD_MIN = 4_000_000
+DEVICE_BUILD_MAX = 64_000_000
 
 
 def validate_file_readable(filepath: str, description: str) -> None:
@@ -82,12 +89,42 @@ def parse_arguments(args: Optional[List[str]] = None) -> argparse.Namespace:
     return parser.parse_args(args)
 
 
+def _device_build_window() -> Tuple[int, int]:
+    """($SHOTGUN_TPU_DEVICE_BUILD_MIN, _MAX); both defaults when either
+    is malformed."""
+    try:
+        return (int(os.environ.get("SHOTGUN_TPU_DEVICE_BUILD_MIN", DEVICE_BUILD_MIN)),
+                int(os.environ.get("SHOTGUN_TPU_DEVICE_BUILD_MAX", DEVICE_BUILD_MAX)))
+    except ValueError:
+        return DEVICE_BUILD_MIN, DEVICE_BUILD_MAX
+
+
 def create_reference(fasta_file: str, kmer_size: int, filter_similar: bool,
-                     similarity_threshold: float) -> KmerReference:
+                     similarity_threshold: float, device: torch.device
+                     ) -> KmerReference:
+    """The database of ``-g``: built on ``device`` (stage
+    ``db_build_device``) when the JAX package's gate takes it -- no
+    ``--filter-similar``, ``$SHOTGUN_TPU_DEVICE_BUILD`` unset or 1, the
+    probe ``auto`` or ``sort``, and the genome codes inside the window --
+    and the device build takes the input; otherwise on the host (stage
+    ``db_build``)."""
     with phase("fasta_parse"):
         container = FASTAFile(fasta_file).container
+    genomes = None
+    if (not filter_similar
+            and os.environ.get("SHOTGUN_TPU_DEVICE_BUILD", "1") == "1"
+            and os.environ.get(PROBE_ENV, "auto") in ("auto", "sort")):
+        genomes = (container.to_genome_arrays()
+                   if hasattr(container, "to_genome_arrays")
+                   else pack_genomes(list(container)))
+        lo, hi = _device_build_window()
+        if lo <= genomes.codes.size <= hi:
+            with phase("db_build_device"):
+                ref = KmerReference.from_device_build(genomes, kmer_size, device)
+            if ref is not None:
+                return ref
     with phase("db_build"):
-        return KmerReference(kmer_size, container,
+        return KmerReference(kmer_size, genomes if genomes is not None else container,
                              filter_similar=filter_similar,
                              similarity_threshold=similarity_threshold)
 
@@ -135,7 +172,7 @@ def _dumpalign(args: argparse.Namespace, device: torch.device) -> None:
         validate_file_readable(args.genomefile, "Genome FASTA")
         kmer_reference = create_reference(
             args.genomefile, args.kmer_size, args.filter_similar,
-            args.similarity_threshold)
+            args.similarity_threshold, device)
     elif args.alignfile:
         sys.exit("Error: dumpalign -a is not yet ported to shotgun_tpu_torch.")
     else:

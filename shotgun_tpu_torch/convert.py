@@ -14,6 +14,7 @@ import torch
 from shotgun_tpu.index.build import KmerIndex
 from shotgun_tpu_torch.models.pipeline import FoldCarry
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
+from shotgun_tpu_torch.ops import probe_sort
 from shotgun_tpu_torch.reference import KmerReference
 
 
@@ -22,6 +23,31 @@ def hash_table(tab, device: torch.device) -> HashTableDev:
     port's ``HashTableDev``; both carry ``table`` and ``stash``."""
     return hash_table_to_device(np.asarray(tab.table), np.asarray(tab.stash),
                                 device)
+
+
+def _keys(klo, khi) -> np.ndarray:
+    return (np.asarray(khi).astype(np.int64) << 32) | np.asarray(klo).astype(np.int64)
+
+
+def sorted_table(tab, device: torch.device) -> probe_sort.SortedTableDev:
+    """A JAX ``SortedTableDev`` -> the port's, without its dead rows
+    (``gc == 0``: shape-bucket pads and invalid device-build windows)."""
+    return probe_sort.sorted_table(_keys(tab.klo, tab.khi), np.array(tab.sid),
+                                   np.array(tab.gc), device)
+
+
+def device_build(built: dict, device: torch.device) -> dict:
+    """A JAX ``device_build_tables`` dict -> the port's: live rows only
+    and one row per distinct key (the JAX table keeps one per window)."""
+    tab = probe_sort.sorted_table(_keys(built["klo"], built["khi"]),
+                                  np.array(built["sid"]), np.array(built["gc"]), device)
+    first = torch.ones_like(tab.keys, dtype=torch.bool)
+    first[1:] = tab.keys[1:] != tab.keys[:-1]
+    return dict(keys=tab.keys[first], sid=tab.sid[first], gc=tab.gc[first],
+                num_kmers=int(built["num_kmers"]), num_sets=int(built["num_sets"]),
+                set_masks=np.asarray(built["set_masks"]),
+                num_records=int(built["num_records"]),
+                num_windows=int(built["klo"].shape[0]), prep_s=built["prep_s"])
 
 
 def fold_carry(carry, device: torch.device) -> FoldCarry:

@@ -1,10 +1,11 @@
 """Batched pseudo-alignment on the device (counterpart of
-``shotgun_tpu/models/pipeline.py``, hash-probe path).
+``shotgun_tpu/models/pipeline.py``, k <= 31).
 
 Per batch of 2-bit packed reads, all on the device:
 
   1. unpack + rolling k-mer encode (+ MKQ window sums)  kernel H1
-  2. bucket-hash probe                                   kernel H2
+  2. probe, by the table's type: the bucket hash (kernel H2) or the sort
+     join (``ops/probe_sort2.py``, which also does step 5)
   3. integer quality gates: MRQ read gate, MKQ window gate
   4. max-genomes gate
   5. first-occurrence dedupe of k-mer values within a read
@@ -24,12 +25,14 @@ zero-anchor, lengths packed into the codes, the superbatch scan, the
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from shotgun_tpu_torch.ops.encode import encode_window, window_quality_sums
 from shotgun_tpu_torch.ops.probe import HashTableDev, probe_kmers
+from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
+from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted
 
 BIG = 0x3FFFFFFF
 FOLD_INF = 0x7FFFFFFF
@@ -113,11 +116,16 @@ def core_from_probe(
     has_mkq: bool,
     has_mg: bool,
     qsum: Optional[torch.Tensor] = None,
+    pre_first_occ: Optional[torch.Tensor] = None,
 ) -> BatchResult:
     """Everything after the probe: gates, dedupe, counts, m/p decision.
 
     ``qsum``: the [B, W] window quality sums when already computed (kernel
-    H1 makes them with the keys); otherwise they come from ``qual``."""
+    H1 makes them with the keys); otherwise they come from ``qual``.
+    ``pre_first_occ``: the within-read first-occurrence mask when the probe
+    made it (the sort join); ``probe_res``'s slot_pos is then unused.  The
+    max-genomes gate masks whole keys, so masking it by ``stored`` is
+    exact."""
     hit, sid, gcount, slot_pos = probe_res
     b, w = hit.shape
     dev = hit.device
@@ -156,7 +164,10 @@ def core_from_probe(
         stored = hit
 
     # ---- first-occurrence dedupe, per-record counts ----
-    first_occ = _first_occurrence(slot_pos, stored)
+    if pre_first_occ is not None:
+        first_occ = pre_first_occ & stored
+    else:
+        first_occ = _first_occurrence(slot_pos, stored)
     spec_w = first_occ & (gcount == 1)
     spec_counts, total_counts, fw_spec, fw_total = _record_counts(
         sid, spec_w, first_occ, member)
@@ -329,12 +340,46 @@ def aggregate_batch(res: BatchResult, row_valid: torch.Tensor) -> AggResult:
     )
 
 
-def align_fold_batch(
-    carry: FoldCarry,
-    probe_tab: HashTableDev,
+#: the probe tables ``align_batch`` dispatches on
+DeviceTable = Union[HashTableDev, SortedTableDev]
+
+
+def align_batch(
+    probe_tab: DeviceTable,
     set_member: torch.Tensor,        # bool [S, R]
     codes: torch.Tensor,             # uint8 [B, L/4] 2-bit packed
     qual: Optional[torch.Tensor],    # uint8 [B, L] when a quality gate is on
+    lengths: torch.Tensor,           # int32 [B]
+    m: int, p: int, mrq: int, mkq: int, mg: int,
+    *,
+    k: int,
+    has_mrq: bool,
+    has_mkq: bool,
+    has_mg: bool,
+) -> BatchResult:
+    """Encode + probe + classify one batch, the probe chosen by the
+    table's type (the JAX package's ``align_batch_core``)."""
+    keys, qsum = encode_window(codes, k, qual if has_mkq else None)
+    first_occ = None
+    if isinstance(probe_tab, SortedTableDev):
+        query_ok = _window_ok(None, lengths, k, keys.shape[1], mkq, has_mkq,
+                              qsum=qsum)
+        hit, sid, gc, first_occ = probe_dedupe_sorted(probe_tab, keys, query_ok)
+        probe_res = (hit, sid, gc, None)
+    else:
+        probe_res = probe_kmers(probe_tab.table, probe_tab.stash, keys)
+    return core_from_probe(
+        probe_res, set_member, qual, lengths, m, p, mrq, mkq, mg,
+        k=k, has_mrq=has_mrq, has_mkq=has_mkq, has_mg=has_mg, qsum=qsum,
+        pre_first_occ=first_occ)
+
+
+def align_fold_batch(
+    carry: FoldCarry,
+    probe_tab: DeviceTable,
+    set_member: torch.Tensor,
+    codes: torch.Tensor,
+    qual: Optional[torch.Tensor],
     lengths: torch.Tensor,           # int32 [B]; 0 marks tail padding rows
     m: int, p: int, mrq: int, mkq: int, mg: int,
     *,
@@ -343,15 +388,12 @@ def align_fold_batch(
     has_mkq: bool,
     has_mg: bool,
 ) -> FoldCarry:
-    """One streamed batch: encode + probe + classify + aggregate + fold.
+    """One streamed batch: ``align_batch`` + aggregate + fold.
 
     Zero-length rows are the tail padding of the final chunk (the FASTQ
     grammar requires a nonempty sequence line), so ``row_valid`` is
     ``lengths > 0``."""
-    keys, qsum = encode_window(codes, k, qual if has_mkq else None)
-    probe_res = probe_kmers(probe_tab.table, probe_tab.stash, keys)
-    res = core_from_probe(
-        probe_res, set_member, qual, lengths, m, p, mrq, mkq, mg,
-        k=k, has_mrq=has_mrq, has_mkq=has_mkq, has_mg=has_mg, qsum=qsum,
-    )
+    res = align_batch(probe_tab, set_member, codes, qual, lengths,
+                      m, p, mrq, mkq, mg, k=k, has_mrq=has_mrq,
+                      has_mkq=has_mkq, has_mg=has_mg)
     return _fold_agg(carry, aggregate_batch(res, lengths > 0))

@@ -1,15 +1,15 @@
 """``KmerReference`` for the port: the k-mer database facade over
 ``shotgun_tpu.index.build``'s ``KmerIndex`` (counterpart of
-``shotgun_tpu/reference.py``, the parts the dumpalign hash path needs).
+``shotgun_tpu/reference.py``, the parts dumpalign needs).
 
 Built on the host (``build_index``: native C++ for k <= 31, numpy for
-any k), loaded from the JAX package's ``.kdb`` npz container,
-and turned into device probe tables.  Only the bucket-hash probe is
-ported: ``auto`` picks the 16-slot ``hash16`` table above
-``AUTO_HASH_MIN_KEYS`` distinct k-mers, as the JAX package does, and the
-4-slot ``hash`` table below it until the sort join is ported.  Asking for
-the sort join, or k > 31, raises ``NotImplementedError``; nothing
-substitutes another probe quietly.
+any k), loaded from the JAX package's ``.kdb`` npz container, or built
+on the device (``from_device_build``), and turned into device probe
+tables.  ``auto`` picks the sort join (``sort``) up to
+``AUTO_HASH_MIN_KEYS`` distinct k-mers and the 16-slot ``hash16`` table
+above, as the JAX package does; ``hash`` is the 4-slot table.  k > 31
+raises ``NotImplementedError``; nothing substitutes another probe
+quietly.
 """
 
 from __future__ import annotations
@@ -26,8 +26,10 @@ from shotgun_tpu.index import extsim
 from shotgun_tpu.index.build import KmerIndex, build_index
 from shotgun_tpu.io.packing import GenomeArrays, pack_genomes
 from shotgun_tpu.io.records import SeqRecord
+from shotgun_tpu_torch.index.device_build import device_build_tables, device_hash_table
 from shotgun_tpu_torch.index.hashtable import ProbeTable, build_probe_table
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
+from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table, sorted_table_host
 
 PROBE_ENV = "SHOTGUN_TPU_PROBE"
 
@@ -43,9 +45,32 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
         f"(ROADMAP.md, Queue 1 item {item})")
 
 
+class _DeviceIndexStub:
+    """Index facade of a device-built reference: the align and summary
+    paths read only k, the record descriptions and the key and set
+    counts; the key-shaped arrays live on the device.  Anything that needs
+    host k-mer arrays raises (counterpart of the JAX package's, its
+    ``reference.py:79-105``)."""
+
+    def __init__(self, k, descriptions, num_kmers, num_sets):
+        self.k = k
+        self.descriptions = descriptions
+        self.num_kmers = num_kmers
+        self.num_sets = num_sets
+
+    @property
+    def num_records(self) -> int:
+        return len(self.descriptions)
+
+    def __getattr__(self, name):
+        raise AttributeError(
+            f"device-built reference has no host index array '{name}'; "
+            "build it on the host (KmerReference(k, container)) instead")
+
+
 class KmerReference:
     #: auto probe crossover in distinct k-mers (the JAX package's value,
-    #: set on a TPU; to be re-derived on the H100 with the sort join)
+    #: set on a TPU; to be re-derived from H100 measurements)
     AUTO_HASH_MIN_KEYS = 8_000_000
 
     def __init__(
@@ -80,7 +105,36 @@ class KmerReference:
                     self.index, similarity_threshold)
         self._probe_tables: Dict[str, ProbeTable] = {}
         self._set_member_dense: Optional[np.ndarray] = None
-        self._device_tables: Dict[tuple, HashTableDev] = {}
+        self._device_tables: Dict[tuple, Union[HashTableDev, SortedTableDev]] = {}
+        # device build products (from_device_build), and whether their
+        # 16-slot hash table cannot be assembled
+        self._built: Optional[dict] = None
+        self._hash16_failed = False
+
+    @classmethod
+    def from_device_build(cls, genomes: GenomeArrays, k: int,
+                          device: torch.device) -> Optional["KmerReference"]:
+        """A reference whose tables were built on ``device``
+        (``index/device_build.py``): it aligns and summarizes as a
+        host-built one does, but holds no host k-mer arrays.  None when
+        the device build does not take the input; callers then build on
+        the host."""
+        built = device_build_tables(genomes, k, device)
+        if built is None:
+            return None
+        index = _DeviceIndexStub(
+            k=k, descriptions=list(genomes.descriptions),
+            num_kmers=built["num_kmers"], num_sets=built["num_sets"])
+        self = cls(k, _index=index)
+        r = index.num_records
+        bits = np.unpackbits(built["set_masks"], axis=1, bitorder="little")
+        dense = np.zeros((max(built["num_sets"], 1), r), dtype=np.uint8)
+        dense[: built["num_sets"]] = bits[:, :r]
+        self._set_member_dense = dense
+        # the hash table assembles lazily, on the first probe above the
+        # auto crossover: a build that never aligns never pays for it
+        self._built = built
+        return self
 
     # ------------------------------------------------------------------
     # .kdb loading (the JAX package's npz container)
@@ -128,20 +182,22 @@ class KmerReference:
     # ------------------------------------------------------------------
 
     def probe_method(self, method: Optional[str] = None) -> str:
-        """'hash' (4 slots) or 'hash16' (16 slots); ``method`` defaults to
-        $SHOTGUN_TPU_PROBE or 'auto'."""
+        """'sort' (the sort join), 'hash' (4 slots) or 'hash16' (16
+        slots); ``method`` defaults to $SHOTGUN_TPU_PROBE or 'auto'.
+        'auto' is 'hash16' above ``AUTO_HASH_MIN_KEYS`` distinct k-mers,
+        unless the device-built hash table could not be assembled, and
+        'sort' otherwise."""
         method = method or os.environ.get(PROBE_ENV, "auto")
         if self.index.k > 31:
             raise _not_ported(
                 f"k={self.index.k} > 31 (multi-word keys)", 4)
         if method == "auto":
-            return ("hash16" if self.index.num_kmers > self.AUTO_HASH_MIN_KEYS
-                    else "hash")
-        if method == "sort":
-            raise _not_ported(f"{PROBE_ENV}=sort (the sort-join probe)", 1)
-        if method not in ("hash", "hash16"):
+            big = (self.index.num_kmers > self.AUTO_HASH_MIN_KEYS
+                   and not self._hash16_failed)
+            return "hash16" if big else "sort"
+        if method not in ("sort", "hash", "hash16"):
             raise UserInputError(
-                f"unknown probe method {method!r} (auto, hash, hash16)")
+                f"unknown probe method {method!r} (auto, sort, hash, hash16)")
         return method
 
     def probe_table(self, method: str = "hash") -> ProbeTable:
@@ -153,15 +209,44 @@ class KmerReference:
                 slots_per_bucket=16 if method == "hash16" else 4)
         return self._probe_tables[method]
 
-    def device_probe_tables(self, device: torch.device,
-                            method: Optional[str] = None) -> HashTableDev:
-        """The probe table on ``device``, built and uploaded once."""
-        method = self.probe_method(method)
+    def device_probe_tables(self, device: torch.device, method: Optional[str] = None
+                            ) -> Union[HashTableDev, SortedTableDev]:
+        """The probe table on ``device``, made once.
+
+        A device-built reference assembles its 16-slot table on the
+        device from the build products.  When that fails deterministically
+        (over the memory budget, or a stash that keeps overflowing) the
+        failure is kept: 'auto' takes the sort join from then on, and an
+        explicit 'hash16' raises.  Device errors raise."""
+        device = torch.device(device)
+        requested = method or os.environ.get(PROBE_ENV, "auto")
+        method = self.probe_method(requested)
+        if method == "hash16" and self._built is not None:
+            key = (method, str(device))
+            if key not in self._device_tables and not self._hash16_failed:
+                ht = device_hash_table(self._built)
+                if ht is None:
+                    self._hash16_failed = True
+                else:
+                    self._device_tables[key] = HashTableDev(
+                        table=ht[0].to(device), stash=ht[1].to(device))
+            if self._hash16_failed:
+                if requested != "auto":
+                    raise RuntimeError(
+                        "the 16-slot hash table of this device-built reference "
+                        "does not fit the memory budget or its stash")
+                method = "sort"
         key = (method, str(device))
         if key not in self._device_tables:
-            pt = self.probe_table(method)
-            self._device_tables[key] = hash_table_to_device(
-                pt.table, pt.stash, device)
+            if method == "sort" and self._built is not None:
+                tab = SortedTableDev(*(self._built[c].to(device)
+                                       for c in ("keys", "sid", "gc")))
+            elif method == "sort":
+                tab = sorted_table(*sorted_table_host(self.index), device)
+            else:
+                pt = self.probe_table(method)
+                tab = hash_table_to_device(pt.table, pt.stash, device)
+            self._device_tables[key] = tab
         return self._device_tables[key]
 
     def set_member_dense(self) -> np.ndarray:

@@ -3,12 +3,16 @@
     python -m shotgun_tpu_torch.tools.profile_align [--device cuda]
         [--genomes 32] [--genome-len 1000000] [--reads 524288]
         [--strains 0] [--mutation-rate 0] [--error-rate 0]
+        [--probe auto|sort|hash|hash16] [--device-build]
         [--batch 32768] [--repeats 5] [--fill-threads N ...] [--out DIR]
 
 On a synthetic workload (``shotgun_tpu_torch.utils.synth``; by default the
 no-overlap, error-free one of ``chip_smoke.py``), one line each:
 
-- host database build, host probe-table build, table upload;
+- database build (on the host, or on the device with ``--device-build``),
+  and the making of the ``--probe`` table on the device (host build +
+  upload, or the device assembly of a device-built reference's 16-slot
+  table);
 - the stream align (``PseudoAlignment.align_stream``: native fill,
   upload, device pipeline, one fetch), median of ``--repeats`` runs, at
   the batch given, with the MKQ gate, at a quarter and at twice the
@@ -43,7 +47,7 @@ from shotgun_tpu.io.data_file import open_fastq_stream
 from shotgun_tpu_torch.aligner import PseudoAlignment, _lpad, _prefetch_iter
 from shotgun_tpu_torch.io import native_available
 from shotgun_tpu_torch.models.pipeline import align_fold_batch, init_fold_carry
-from shotgun_tpu_torch.reference import KmerReference
+from shotgun_tpu_torch.reference import PROBE_ENV, KmerReference
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.synth import make_genomes, sample_reads, write_workload
 
@@ -174,6 +178,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="ancestors the genomes are mutated copies of (0: none)")
     ap.add_argument("--mutation-rate", type=float, default=0.0)
     ap.add_argument("--error-rate", type=float, default=0.0)
+    ap.add_argument("--probe", default="auto", choices=["auto", "sort", "hash", "hash16"],
+                    help="probe table of every run (sets $SHOTGUN_TPU_PROBE)")
+    ap.add_argument("--device-build", action="store_true",
+                    help="build the database on the device")
     ap.add_argument("--batch", type=int, default=32768)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--fill-threads", type=int, nargs="*", default=[],
@@ -189,7 +197,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     res: dict = {"device": str(device), "workload": {
         k: getattr(args, k) for k in ("seed", "genomes", "genome_len", "reads",
                                       "strains", "mutation_rate", "error_rate",
-                                      "batch")}}
+                                      "batch", "probe", "device_build")}}
     if device.type == "cuda":
         res["card"] = torch.cuda.get_device_name(device)
     say = lambda msg: print(msg, flush=True)  # noqa: E731
@@ -198,28 +206,47 @@ def main(argv: Optional[List[str]] = None) -> dict:
     genomes = make_genomes(rng, args.genomes, args.genome_len, args.strains,
                            args.mutation_rate)
     work = sample_reads(rng, genomes, args.reads, READ_LEN, args.error_rate)
+    probe_env = os.environ.get(PROBE_ENV)
+    os.environ[PROBE_ENV] = args.probe
+    try:
+        _run(args, device, genomes, work, res, say)
+    finally:
+        if probe_env is None:
+            os.environ.pop(PROBE_ENV, None)
+        else:
+            os.environ[PROBE_ENV] = probe_env
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def _run(args, device, genomes, work, res: dict, say) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         fasta, fastq = os.path.join(tmp, "g.fa"), os.path.join(tmp, "r.fq")
         write_workload(work, fasta, fastq)
         n = args.reads
 
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        ref = KmerReference(K, genomes)
-        res["db_build_s"] = time.perf_counter() - t0
-        method = ref.probe_method()
-        t0 = time.perf_counter()
-        pt = ref.probe_table(method)
-        res["table_build_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ref.device_probe_tables(device)
+        if args.device_build:
+            ref = KmerReference.from_device_build(genomes, K, device)
+            if ref is None:
+                raise RuntimeError("the device build does not take this workload")
+        else:
+            ref = KmerReference(K, genomes)
         _sync(device)
-        res["upload_s"] = time.perf_counter() - t0
-        res.update(probe=method, distinct_kmers=int(ref.index.num_kmers),
-                   table_bytes=int(pt.table.nbytes), stash_rows=int(pt.stash.shape[0]))
-        say(f"db build {res['db_build_s']:.3f} s, {method} table build "
-            f"{res['table_build_s']:.3f} s, upload {res['upload_s']:.3f} s: "
-            f"{res['distinct_kmers']} distinct k-mers, table {res['table_bytes']} B, "
-            f"stash {res['stash_rows']} rows")
+        res["db_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tab = ref.device_probe_tables(device)
+        _sync(device)
+        res["table_s"] = time.perf_counter() - t0
+        method = ref.probe_method()
+        res.update(probe_used=method, distinct_kmers=int(ref.index.num_kmers),
+                   table_bytes=sum(t.numel() * t.element_size() for t in tab))
+        say(f"db build ({'device' if args.device_build else 'host'}) "
+            f"{res['db_build_s']:.3f} s, {method} table on the device "
+            f"{res['table_s']:.3f} s: {res['distinct_kmers']} distinct k-mers, "
+            f"table {res['table_bytes']} B")
 
         stats = _stream_align(ref, fastq, device, args.batch).get_summary()["Statistics"]
         res["statistics"] = stats
@@ -274,10 +301,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     f"{p['device_busy_ms']:.3f} ms, idle share {p['idle_share']:.4f}")
                 for name, ms in p["device_ms_by_name"].items():
                     say(f"    {ms:10.3f} ms  {name}")
+            res["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+            say(f"peak device memory {res['peak_device_bytes']} B")
         else:
             say("device busy time and idle share: not measured (no CUDA device)")
-    print(json.dumps(res), flush=True)
-    return res
 
 
 if __name__ == "__main__":

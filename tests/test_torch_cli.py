@@ -1,7 +1,8 @@
 """The port's CLI (python -m shotgun_tpu_torch) on the CPU: byte-identical
-stdout to the recorded dumpalign goldens, a .kdb written by the JAX
-package's CLI, the error contracts of the ported task, and a guard that
-the port runs with jax unimportable."""
+stdout to the recorded dumpalign goldens on every probe route and on the
+device database build, a .kdb written by the JAX package's CLI, the
+device-build gate, the error contracts of the ported task, and a guard
+that the port runs with jax unimportable."""
 
 import json
 import os
@@ -13,6 +14,7 @@ import torch
 
 from shotgun_tpu import cli as jax_cli
 from shotgun_tpu_torch import cli
+from shotgun_tpu_torch.utils.profiling import PROFILER
 
 torch.set_num_threads(2)
 
@@ -38,10 +40,24 @@ def _args(name: str):
     return [a.replace("data/", DATA + "/") for a in _MANIFEST[name]["args"]]
 
 
+GATE_ENV = ("SHOTGUN_TPU_PROBE", "SHOTGUN_TPU_DEVICE_BUILD",
+            "SHOTGUN_TPU_DEVICE_BUILD_MIN", "SHOTGUN_TPU_DEVICE_BUILD_MAX")
+
+
 @pytest.fixture(autouse=True)
 def _cpu_device(monkeypatch):
     monkeypatch.setenv("SHOTGUN_TPU_TORCH_DEVICE", "cpu")
-    monkeypatch.delenv("SHOTGUN_TPU_PROBE", raising=False)
+    for name in GATE_ENV:
+        monkeypatch.delenv(name, raising=False)
+
+
+@pytest.fixture
+def stages():
+    """The CLI's ``--profile`` stage names of the next run."""
+    PROFILER.stats.clear()
+    yield PROFILER.stats
+    PROFILER.enabled = False
+    PROFILER.stats.clear()
 
 
 def _exit_message(capsys, argv) -> str:
@@ -60,6 +76,50 @@ def test_manifest_lists_every_dumpalign_case():
 def test_golden_dumpalign(name, capsys):
     cli.main(_args(name) + ["--batch-size", "16"])
     assert capsys.readouterr().out == _golden(name)
+
+
+#: probe routes and the forced device build (the corpus is 2.6 kbp, under
+#: the device build's default window)
+ROUTES = {"sort": {"SHOTGUN_TPU_PROBE": "sort"},
+          "hash": {"SHOTGUN_TPU_PROBE": "hash"},
+          "device_build": {"SHOTGUN_TPU_DEVICE_BUILD_MIN": "0"}}
+
+
+@pytest.mark.parametrize("name", DUMPALIGN_CASES)
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_golden_dumpalign_routes(route, name, capsys, monkeypatch, stages):
+    for key, value in ROUTES[route].items():
+        monkeypatch.setenv(key, value)
+    cli.main(_args(name) + ["--batch-size", "16", "--profile"])
+    assert capsys.readouterr().out == _golden(name)
+    device_built = route == "device_build" and "--filter-similar" not in _args(name)
+    assert ("db_build_device" in stages) == device_built
+    assert ("db_build" in stages) != device_built
+
+
+@pytest.mark.parametrize("env,device_built", [
+    ({}, False),                                     # under the 4 Mbp floor
+    ({"SHOTGUN_TPU_DEVICE_BUILD_MIN": "0"}, True),
+    ({"SHOTGUN_TPU_DEVICE_BUILD_MIN": "0", "SHOTGUN_TPU_DEVICE_BUILD": "0"}, False),
+    ({"SHOTGUN_TPU_DEVICE_BUILD_MIN": "0", "SHOTGUN_TPU_DEVICE_BUILD": "yes"}, False),
+    ({"SHOTGUN_TPU_DEVICE_BUILD_MIN": "0", "SHOTGUN_TPU_PROBE": "hash16"}, False),
+    ({"SHOTGUN_TPU_DEVICE_BUILD_MIN": "0", "SHOTGUN_TPU_DEVICE_BUILD_MAX": "1000"},
+     False),                                         # over the ceiling
+    ({"SHOTGUN_TPU_DEVICE_BUILD_MIN": "zero"}, False),  # malformed: defaults
+    ({"SHOTGUN_TPU_DEVICE_BUILD_MIN": "0", "SHOTGUN_TPU_DEVICE_BUILD_MAX": "x"},
+     False),
+])
+def test_device_build_gate_routes_as_jax(env, device_built, capsys, monkeypatch,
+                                         stages):
+    """The gate of the JAX package's ``cli.py:301-338``: the build runs on
+    the device only with DEVICE_BUILD=1 (the default), the probe auto or
+    sort, and the genome size in [MIN, MAX]; a malformed bound sets both
+    to their defaults."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    cli.main(_args("plain") + ["--profile"])
+    assert capsys.readouterr().out == _golden("plain")
+    assert ("db_build_device" in stages) == device_built
 
 
 def test_kdb_from_jax_reference_task(tmp_path, capsys):
@@ -105,10 +165,15 @@ def test_bad_extension(tmp_path, capsys):
     ({}, "k=35 > 31"),
 ])
 def test_unported_probes_raise(env, expect, monkeypatch, capsys):
+    """k > 31 is not ported yet.  The sort-join probe, which raised here
+    before it was ported, now gives the plain golden."""
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    k = "11" if env else "35"
-    msg = _exit_message(capsys, ["-t", "dumpalign", "-g", FA, "-k", k,
+    if env:
+        cli.main(_args("plain"))
+        assert capsys.readouterr().out == _golden("plain")
+        return
+    msg = _exit_message(capsys, ["-t", "dumpalign", "-g", FA, "-k", "35",
                                  "--reads", FQ])
     assert expect in msg and "not yet ported" in msg
 

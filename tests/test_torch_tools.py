@@ -1,6 +1,6 @@
 """The port's workload generator (shotgun_tpu_torch.utils.synth), its
-reference built straight from genome arrays, and the profiling tool
-(shotgun_tpu_torch.tools.profile_align) on the CPU."""
+reference built straight from genome arrays, and the profiling tools
+(shotgun_tpu_torch.tools.profile_align, .bench_sortjoin) on the CPU."""
 
 import json
 import os
@@ -16,7 +16,8 @@ from shotgun_tpu.reference import KmerReference as JaxKmerReference
 from shotgun_tpu_torch.aligner import PseudoAlignment
 from shotgun_tpu_torch.io import native_available
 from shotgun_tpu_torch.reference import KmerReference
-from shotgun_tpu_torch.tools import profile_align
+from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted
+from shotgun_tpu_torch.tools import bench_sortjoin, profile_align
 from shotgun_tpu_torch.utils import synth
 
 torch.set_num_threads(2)
@@ -140,3 +141,48 @@ def test_profile_align_runs_on_cpu_and_reports_no_device_metric(capsys, monkeypa
     assert set(res["stream_reads_per_s"]) == {
         "B=256", "B=256 mkq=30", "B=64", "B=512", "B=256 threads=1"}
     assert os.environ.get(profile_align.FILL_ENV) is None
+
+
+@pytest.mark.parametrize("probe", ["sort", "hash16"])
+def test_profile_align_probe_and_device_build(probe, capsys, monkeypatch):
+    """``--probe`` picks the table of every run and ``--device-build``
+    builds the database on the device; the workload's statistics do not
+    change with either, and the probe setting is restored afterwards."""
+    monkeypatch.setenv("SHOTGUN_TPU_PROBE", "hash")
+    argv = ["--device", "cpu", "--genomes", "3", "--genome-len", "4000",
+            "--reads", "300", "--batch", "128", "--repeats", "1", "--strains", "2",
+            "--mutation-rate", "0.01", "--error-rate", "0.005", "--probe", probe]
+    host = profile_align.main(argv)
+    dev = profile_align.main(argv + ["--device-build"])
+    capsys.readouterr()
+    assert host["probe_used"] == dev["probe_used"] == probe
+    assert dev["workload"]["device_build"] and not host["workload"]["device_build"]
+    assert host["statistics"] == dev["statistics"]
+    assert host["distinct_kmers"] == dev["distinct_kmers"]
+    assert os.environ["SHOTGUN_TPU_PROBE"] == "hash"
+
+
+def test_bench_sortjoin_case_has_hits_repeats_and_gated_windows():
+    tab, keys, ok = bench_sortjoin.make_case(np.random.default_rng(9), 3000, 32, CPU)
+    assert keys.shape == (32, bench_sortjoin.WINDOWS)
+    assert bool((tab.keys[1:] > tab.keys[:-1]).all()) and tab.keys.numel() == 3000
+    hit, sid, gc, first = probe_dedupe_sorted(tab, keys, ok)
+    assert 0.3 < hit.float().mean() < 0.7 and not ok.all()
+    assert bool((first <= hit).all()) and int(hit.sum()) > int(first.sum())
+
+
+def test_bench_sortjoin_runs_on_cpu_and_reports_no_device_metric(capsys):
+    """Every variant agrees with the pipeline's join, and the times are
+    labelled as the host's clock."""
+    res = bench_sortjoin.main(["--device", "cpu", "--keys", "500", "20000",
+                               "--batch", "48", "--iters", "1"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == json.loads(json.dumps(res))
+    assert res["timer"] == "host clock, not a device metric"
+    assert [r["keys"] for r in res["runs"]] == [500, 20000]
+    for run in res["runs"]:
+        assert run["cummax_equal"] and all(run["hash16_equal"].values())
+        assert run["sorted_rows"] == run["keys"] + 48 * bench_sortjoin.WINDOWS
+        assert set(run["ms"]) == {"join", "join_cummax", "sort_stable",
+                                  "sort_unstable", "cummax", "cumsum",
+                                  "scatter_restore", "hash16"}
