@@ -38,7 +38,29 @@ Phases, one line each:
      each run's aligned reads/s is printed;
   7. the 13 dumpalign golden cases of tests/golden through the CLI on the
      card, byte for byte, on the auto route, on the sort join, on the
-     4-slot hash table and with the device build forced.
+     4-slot hash table and with the device build forced; on each route
+     also the 3 dumpref cases and the corpus through reference -> align ->
+     dumpalign -a, which must print the plain case;
+  8. the rest of the CLI at size, in the directory of phases 5 and 6:
+     a. the strain panel: -t reference (host build, .kdb saved);
+        dumpref -r of that file and dumpref -g, each to a file, equal
+        SHA-256; -t align of phase 6's reads on the auto route (sort), the
+        4-slot and the 16-slot hash tables, and with -g and -r given (-r
+        wins, as in the JAX CLI): the four .aln files byte-equal, H1
+        launched on every route and H2 on the hash routes only; dumpalign
+        -a of the sort .aln equal to dumpalign -r --reads; each align's
+        reads/s beside the dumpalign stream's, and the bytes of mapping
+        lists fetched per batch;
+     b. the 32 Mbp main-path workload: -t reference, then -t align (auto:
+        the host-built 16-slot table, so H2 runs), then the .aln loaded
+        back and its read store held against the truth read by read (ids
+        in input order, every read unique, every list its genome); the
+        stages, the .kdb/.aln sizes with their write and load seconds, the
+        align reads/s and the peak device memory;
+     c. EXTSIM at G = 512 (64 ancestors x 8 copies of 20 kbp at 1%
+        mutation): the overlap matrix on the card equal to the JAX
+        package's host product, both timed, and dumpref --filter-similar
+        on the panel through the CLI, which must drop genomes.
 
 Then one JSON line of per-kernel results and, last, the device line.  Any
 failure raises and exits non-zero; so does a machine without CUDA, and a
@@ -58,9 +80,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -72,6 +96,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 GOLDEN_CASES = ["plain", "m2", "m0", "p0", "p5", "pneg", "mrq", "mkq",
                 "mg0", "mg1", "mg2", "combo", "sim-align"]
+DUMPREF_CASES = ["dumpref", "dumpref-sim75", "dumpref-sim0"]
 K = 31
 BATCH = 32768
 LPAD = 160
@@ -93,6 +118,10 @@ ROUTE_ENV = ("SHOTGUN_TPU_PROBE", "SHOTGUN_TPU_DEVICE_BUILD",
 #: main-path MKQ gate: every window of the all-'I' reads passes it, so the
 #: run exercises the quality-sum kernel without changing the truth
 MKQ = 30
+#: the EXTSIM panel of phase 8c: EXT_ANCESTORS x 8 copies of EXT_LEN bases
+EXT_GENOMES = 512
+EXT_ANCESTORS = 64
+EXT_LEN = 20_000
 PALLAS = "shotgun_tpu/ops/pallas/kernels.py"
 CSRC = "shotgun_tpu_torch/ops/kernels/csrc"
 
@@ -238,29 +267,34 @@ def phase_kernels(tab, codes: np.ndarray, genomes, rng, device) -> list:
     return results
 
 
-def run_cli(argv, env=None) -> str:
+def run_cli(argv, env=None, out_path=None) -> str:
     """The port's CLI in process, with the route variables set to ``env``
-    for the call."""
+    for the call; stdout goes to ``out_path`` when given (and "" is
+    returned)."""
     from shotgun_tpu_torch.cli import main as cli_main
 
     saved = {name: os.environ.pop(name, None) for name in ROUTE_ENV}
     os.environ.update(env or {})
     buf = io.StringIO()
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.ExitStack() as stack:
+            if out_path is not None:
+                buf = stack.enter_context(open(out_path, "w"))
+            stack.enter_context(contextlib.redirect_stdout(buf))
             cli_main(argv)
     finally:
         for name, value in saved.items():
             os.environ.pop(name, None)
             if value is not None:
                 os.environ[name] = value
-    return buf.getvalue()
+    return "" if out_path is not None else buf.getvalue()
 
 
-def counted_run(argv, env=None):
+def counted_run(argv, env=None, out_path=None, stream=True):
     """One profiled CLI run with every kernel's launch count set to 0 just
     before it: (stdout, {stage: seconds}, {kernel: launches}, wall s, peak
-    device bytes)."""
+    device bytes).  ``stream``: the run aligns reads, and must take the
+    stream route."""
     import torch
 
     from shotgun_tpu_torch.ops.encode import encode_window
@@ -274,14 +308,14 @@ def counted_run(argv, env=None):
     encode_window.launches = 0
     hash_probe.launches = 0
     t0 = time.perf_counter()
-    out = run_cli(argv + ["--profile"], env)
+    out = run_cli(argv + ["--profile"], env, out_path)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"encode_window": encode_window.launches,
                 "hash_probe": hash_probe.launches}
     PROFILER.enabled = False
     stages = {name: st.seconds for name, st in PROFILER.stats.items()}
-    if "stream_align" not in stages or "align" in stages:
+    if stream and ("stream_align" not in stages or "align" in stages):
         raise AssertionError(f"the stream route did not run: {stages}")
     return out, stages, launches, wall, torch.cuda.max_memory_allocated()
 
@@ -430,21 +464,218 @@ def phase_strains(fa: str, fq: str) -> dict:
     return by_route
 
 
-def phase_goldens() -> None:
-    """Phase 7: the dumpalign golden cases on the card, byte for byte, on
-    every route."""
+def golden(case: str) -> str:
+    with open(os.path.join(GOLDEN, f"{case}.out")) as fh:
+        return fh.read()
+
+
+def phase_goldens(tmp: str) -> None:
+    """Phase 7: the dumpalign and dumpref golden cases on the card, byte
+    for byte, and the corpus through reference -> align -> dumpalign -a,
+    on every route."""
     with open(os.path.join(GOLDEN, "manifest.json")) as fh:
         manifest = json.load(fh)
     data = os.path.join(GOLDEN, "data") + "/"
+    kdb, aln = os.path.join(tmp, "corpus.kdb"), os.path.join(tmp, "corpus.aln")
     for route, env in GOLDEN_ROUTES:
-        for case in GOLDEN_CASES:
+        for case in GOLDEN_CASES + DUMPREF_CASES:
             argv = [a.replace("data/", data) for a in manifest[case]["args"]]
-            out = run_cli(argv + ["--batch-size", "16"], env)
-            with open(os.path.join(GOLDEN, f"{case}.out")) as fh:
-                if out != fh.read():
-                    raise AssertionError(f"golden {case} ({route}): output differs")
-    say(f"phase 7 goldens: {len(GOLDEN_CASES)} dumpalign cases byte-equal on "
-        f"the card on each route: {', '.join(r for r, _ in GOLDEN_ROUTES)}")
+            if run_cli(argv + ["--batch-size", "16"] * (case in GOLDEN_CASES),
+                       env) != golden(case):
+                raise AssertionError(f"golden {case} ({route}): output differs")
+        run_cli(["-t", "reference", "-g", data + "corpus.fa", "-k", "11",
+                 "-r", kdb], env)
+        run_cli(["-t", "align", "-r", kdb, "--reads", data + "corpus.fq",
+                 "-a", aln, "--batch-size", "16"], env)
+        if run_cli(["-t", "dumpalign", "-a", aln], env) != golden("plain"):
+            raise AssertionError(f"reference -> align -> dumpalign -a ({route}): "
+                                 "output differs from the plain case")
+    say(f"phase 7 goldens: {len(GOLDEN_CASES)} dumpalign and {len(DUMPREF_CASES)} "
+        "dumpref cases byte-equal on the card, and reference -> align -> "
+        "dumpalign -a equal to the plain case, on each route: "
+        f"{', '.join(r for r, _ in GOLDEN_ROUTES)}")
+
+
+def sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def fetched_bytes_per_batch(aln, n_reads: int, batch: int) -> float:
+    """Bytes of the read store copied to the host per batch: a mapping-type
+    byte and a 4-byte list length per read, 8 bytes per list entry."""
+    n_batches = -(-n_reads // batch)
+    entries = sum(int(x.size) for x in aln._list_flat)
+    return (5 * n_reads + 8 * entries) / n_batches
+
+
+def phase_strain_files(tmp: str, fa: str, fq: str) -> dict:
+    """Phase 8a: reference, dumpref, align and dumpalign -a on the strain
+    panel; returns each align route's kernel launches."""
+    from shotgun_tpu_torch.aligner import PseudoAlignment
+
+    kdb = os.path.join(tmp, "s.kdb")
+    _, st, _, wall, _ = counted_run(
+        ["-t", "reference", "-g", fa, "-k", str(K), "-r", kdb], stream=False)
+    parts = ["reference: wall %.3f s (db build %.3f s, .kdb write %.3f s), "
+             ".kdb %d B" % (wall, st["db_build"], st["kdb_save"],
+                            os.path.getsize(kdb))]
+    dumps = []
+    for name, argv in (("dumpref -r", ["-r", kdb]),
+                       ("dumpref -g", ["-g", fa, "-k", str(K)])):
+        path = os.path.join(tmp, f"s_dumpref_{len(dumps)}.json")
+        _, st, _, wall, _ = counted_run(["-t", "dumpref"] + argv, out_path=path,
+                                        stream=False)
+        size = os.path.getsize(path)
+        dumps.append(sha256(path))
+        parts.append("%s: %d B in %.3f s (%.1f MB/s written), wall %.3f s" % (
+            name, size, st["dumpref"], size / st["dumpref"] / 1e6, wall))
+        os.remove(path)
+    if dumps[0] != dumps[1]:
+        raise AssertionError("strain panel: dumpref -r and dumpref -g differ")
+
+    routes = [("sort", {}, ["-r", kdb], False),
+              ("hash", {"SHOTGUN_TPU_PROBE": "hash"}, ["-r", kdb], True),
+              ("hash16", {"SHOTGUN_TPU_PROBE": "hash16"}, ["-r", kdb], True),
+              ("-g and -r", {}, ["-g", fa, "-k", str(K), "-r", kdb], False)]
+    by_route, digests = {}, []
+    for name, env, src, hashed in routes:
+        aln = os.path.join(tmp, f"s_{len(digests)}.aln")
+        _, st, launches, wall, peak = counted_run(
+            ["-t", "align"] + src + ["--reads", fq, "-a", aln], env)
+        if launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed:
+            raise AssertionError(f"strains align, {name}: launches {launches}")
+        digests.append(sha256(aln))
+        by_route[f"strains align: {name}"] = launches
+        parts.append("align %s: stream %.3f s = %.0f reads/s aligned (of it the "
+                     "read store's host work %.3f s), table %.3f s, .aln write "
+                     "%.3f s, wall %.3f s, peak %d B, launches %s" % (
+                         name, st["stream_align"], N_READS / st["stream_align"],
+                         st["read_store"], st.get("table_build", 0.0),
+                         st["aln_save"], wall, peak, launches))
+    if len(set(digests)) != 1:
+        raise AssertionError("strain panel: the .aln files of the routes differ")
+    aln = os.path.join(tmp, "s_0.aln")
+    parts.append(".aln %d B, %.0f B of mapping lists fetched per batch of %d" % (
+        os.path.getsize(aln),
+        fetched_bytes_per_batch(PseudoAlignment.load(aln), N_READS, BATCH), BATCH))
+    direct, st, _, _, _ = counted_run(["-t", "dumpalign", "-r", kdb, "--reads", fq])
+    parts.append("dumpalign -r --reads (the same panel and table): stream %.3f s "
+                 "= %.0f reads/s aligned" % (st["stream_align"],
+                                              N_READS / st["stream_align"]))
+    if run_cli(["-t", "dumpalign", "-a", aln]) != direct:
+        raise AssertionError("strain panel: dumpalign -a != dumpalign -r --reads")
+    for i in range(len(routes)):
+        os.remove(os.path.join(tmp, f"s_{i}.aln"))
+    os.remove(kdb)
+    say("phase 8a strain panel, the rest of the CLI: dumpref -r == dumpref -g "
+        "(SHA-256), the .aln of %d align routes byte-equal, dumpalign -a == "
+        "dumpalign -r --reads; %s" % (len(routes), "; ".join(parts)))
+    return by_route
+
+
+def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray) -> dict:
+    """Phase 8b: the 32 Mbp workload through reference and align, the
+    read store loaded back and held against the truth; returns the align
+    run's kernel launches."""
+    from shotgun_tpu_torch.aligner import PseudoAlignment
+
+    say("phase 8b: %d B free in %s before the 32 Mbp .kdb and .aln" % (
+        shutil.disk_usage(tmp).free, tmp))
+    kdb, aln = os.path.join(tmp, "m.kdb"), os.path.join(tmp, "m.aln")
+    _, ref_st, _, ref_wall, _ = counted_run(
+        ["-t", "reference", "-g", fa, "-k", str(K), "-r", kdb], stream=False)
+    _, st, launches, wall, peak = counted_run(
+        ["-t", "align", "-r", kdb, "--reads", fq, "-a", aln])
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"32 Mbp align: a kernel never launched: {launches}")
+    t0 = time.perf_counter()
+    store = PseudoAlignment.load(aln)
+    load_s = time.perf_counter() - t0
+    n = int(gi.size)
+    flat = np.concatenate(store._list_flat)
+    if store._read_ids != [f"read_{i}" for i in range(n)]:
+        raise AssertionError("32 Mbp align: read ids are not the input's, in order")
+    if set(store._mtypes) != {1} or len(store._mtypes) != n:
+        raise AssertionError("32 Mbp align: not every read is uniquely mapped")
+    if set(store._list_counts) != {1} or not np.array_equal(flat, gi):
+        raise AssertionError("32 Mbp align: a mapping list is not [its genome]")
+    stats = store.get_summary()["Statistics"]
+    if stats != {"unique_mapped_reads": n, "ambiguous_mapped_reads": 0,
+                 "unmapped_reads": 0}:
+        raise AssertionError(f"32 Mbp align: Statistics {stats}")
+    say("phase 8b 32 Mbp align task, read store == truth read by read (%d reads): "
+        "reference wall %.3f s (fasta %.3f s, host build %.3f s, .kdb write "
+        "%.3f s), .kdb %d B; align wall %.3f s (.kdb load %.3f s, host "
+        "16-slot table %.3f s, stream %.3f s = %.0f reads/s aligned, of it "
+        "the read store's host work %.3f s, .aln write %.3f s), .aln %d B, "
+        ".aln load %.3f s, %.0f B of mapping lists fetched per batch of %d, "
+        "peak device memory %d B, launches %s" % (
+            n, ref_wall, ref_st["fasta_parse"], ref_st["db_build"],
+            ref_st["kdb_save"], os.path.getsize(kdb), wall, st["kdb_load"],
+            st["table_build"], st["stream_align"], n / st["stream_align"],
+            st["read_store"], st["aln_save"], os.path.getsize(aln), load_s,
+            fetched_bytes_per_batch(store, n, BATCH), BATCH, peak, launches))
+    os.remove(kdb)
+    os.remove(aln)
+    return launches
+
+
+def phase_extsim(tmp: str, rng, device) -> None:
+    """Phase 8c: EXTSIM's overlap matrix on the card against the host
+    product at G = 512, then dumpref --filter-similar on the panel."""
+    import torch
+
+    from shotgun_tpu_torch.index.extsim import (
+        _ident_pairs,
+        overlap_matrix_device,
+        overlap_matrix_host,
+    )
+    from shotgun_tpu_torch.reference import KmerReference
+    from shotgun_tpu_torch.utils.synth import make_genomes, to_fasta
+
+    panel = make_genomes(rng, EXT_GENOMES, EXT_LEN, EXT_ANCESTORS, MUTATION_RATE)
+    index = KmerReference(K, panel).index
+    idents, _, kmer_u, ident_u = _ident_pairs(index)
+    g = len(idents)
+    args = (kmer_u, ident_u, g, index.num_kmers)
+    overlap_matrix_device(*args, device)  # warm-up: cuBLAS handle, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = overlap_matrix_device(*args, device)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = overlap_matrix_host(*args)
+    host_s = time.perf_counter() - t0
+    if dev.dtype != np.int64 or not np.array_equal(dev, host):
+        raise AssertionError("EXTSIM: the device overlap matrix != the host's")
+    fa = os.path.join(tmp, "ext.fa")
+    with open(fa, "w") as fh:
+        fh.write(to_fasta(panel))
+    out = os.path.join(tmp, "ext_dumpref.json")
+    _, st, _, wall, _ = counted_run(
+        ["-t", "dumpref", "-g", fa, "-k", str(K), "--filter-similar",
+         "--similarity-threshold", "0.5"], out_path=out, stream=False)
+    with open(out) as fh:
+        text = fh.read()
+    # the Similarity report is the JSON's last member
+    at = text.rindex('"Similarity": ') + len('"Similarity": ')
+    sim = json.loads(text[at:].rstrip()[:-1])
+    kept = sum(v["kept"] == "yes" for v in sim.values())
+    if len(sim) != g or not 0 < kept < g:
+        raise AssertionError(f"EXTSIM dumpref: {kept} of {len(sim)} genomes kept")
+    say("phase 8c EXTSIM at G=%d (%d ancestors x %d copies of %d bp at %.1f%% "
+        "mutation, %d distinct k-mers, %d (k-mer, genome) pairs): overlap matrix "
+        "on the card == host product exactly, card %.3f ms vs host %.3f ms; "
+        "dumpref --filter-similar --similarity-threshold 0.5: %d of %d kept, "
+        "db build with EXTSIM %.3f s, dumpref %d B in %.3f s, wall %.3f s" % (
+            g, EXT_ANCESTORS, EXT_GENOMES // EXT_ANCESTORS, EXT_LEN,
+            100 * MUTATION_RATE, index.num_kmers, kmer_u.size, 1e3 * dev_s,
+            1e3 * host_s, kept, g, st["db_build"], len(text), st["dumpref"], wall))
+    os.remove(out)
 
 
 def main() -> int:
@@ -502,8 +733,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         # 5. main path
-        fa = os.path.join(tmp, "genomes.fa")
-        fq = os.path.join(tmp, "reads.fq")
+        fa, fq = os.path.join(tmp, "m.fa"), os.path.join(tmp, "m.fq")
         write_workload(work, fa, fq)
         gi = work.genome_of
         del genomes, work
@@ -511,13 +741,22 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # 6. strain panel on four routes
-        write_workload(strain_work, fa, fq)
+        sfa, sfq = os.path.join(tmp, "s.fa"), os.path.join(tmp, "s.fq")
+        write_workload(strain_work, sfa, sfq)
         del strains, strain_work
-        by_path = {"main path": launches, **phase_strains(fa, fq)}
-    torch.cuda.empty_cache()
+        by_path = {"main path": launches, **phase_strains(sfa, sfq)}
+        torch.cuda.empty_cache()
 
-    # 7. goldens on the card, every route
-    phase_goldens()
+        # 7. goldens on the card, every route
+        phase_goldens(tmp)
+
+        # 8. the rest of the CLI at size
+        by_path.update(phase_strain_files(tmp, sfa, sfq))
+        torch.cuda.empty_cache()
+        by_path["32 Mbp align"] = phase_main_files(tmp, fa, fq, gi)
+        torch.cuda.empty_cache()
+        phase_extsim(tmp, rng, device)
+    torch.cuda.empty_cache()
 
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]

@@ -1,6 +1,7 @@
-"""``PseudoAlignment`` for the port: streamed dumpalign aggregation
-(counterpart of ``shotgun_tpu/aligner.py``, the ``store_reads=False``
-stream route and its container fallback).
+"""``PseudoAlignment`` for the port: streamed alignment with the dumpalign
+aggregation and the align task's read store (counterpart of
+``shotgun_tpu/aligner.py``: ``align_stream``, its container fallback,
+the read store and the ``.aln`` file).
 
 Chunks come from the shared native fill (``FASTAQStream.chunks_packed``:
 codes 2-bit packed, quality only when a gate reads it) on a producer
@@ -8,35 +9,75 @@ thread, go through pinned host memory to the device with non-blocking
 copies, and fold into one device-resident ``FoldCarry`` that is fetched
 once a run.  The integer host state then reconstructs the reference's
 dumpalign JSON, dict orders and downgrade double count included.
+
+With ``store_reads`` each batch's mapping lists are compacted on the
+device (``models.pipeline.store_lists``) and copied to pinned host memory
+without blocking: a byte of mapping type and a list length per read, and
+the lists themselves.  The host then does only what needs strings: the
+read ids and the duplicate check.
 """
 
 from __future__ import annotations
 
+import io
+import json
 import queue
 import threading
-from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
+from enum import Enum
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from shotgun_tpu.errors import UserInputError
-from shotgun_tpu.io.native import LmaxExceeded
+from shotgun_tpu.io import native
+from shotgun_tpu.io.native import LmaxExceeded, NativeParseError
 from shotgun_tpu.io.packing import pack_reads
 from shotgun_tpu.io.records import SeqRecord
 from shotgun_tpu_torch.models.pipeline import (
     FOLD_INF,
     FoldCarry,
-    align_fold_batch,
+    StoreLists,
+    _fold_agg,
+    aggregate_batch,
+    align_batch,
     init_fold_carry,
+    store_lists,
 )
 from shotgun_tpu_torch.ops.encode import pack_codes_2bit
-from shotgun_tpu_torch.reference import KmerReference
+from shotgun_tpu_torch.reference import KDBFormatError, KmerReference
+from shotgun_tpu_torch.utils.profiling import phase
 
 _INF = np.iinfo(np.int64).max
 
 #: one chunk as the native packed fill yields it: (codes_2bit [C, L/4] u8,
 #: qual [C, L] u8 (or a dummy), lengths [C] i32, rows filled)
 Chunk = Tuple[np.ndarray, np.ndarray, np.ndarray, int]
+
+
+class NotValidatingUniqueMapping(Exception):
+    def __init__(self, message: str) -> None:
+        super().__init__(message)
+
+
+class AddingExistingRead(Exception):
+    def __init__(self, message: str) -> None:
+        super().__init__(message)
+
+
+class ReadMappingType(Enum):
+    UNMAPPED = 1
+    UNIQUELY_MAPPED = 2
+    AMBIGUOUSLY_MAPPED = 3
+
+
+# device mtype codes (models/pipeline.py) -> ReadMappingType
+_MTYPE_FROM_CODE = {
+    0: ReadMappingType.UNMAPPED,
+    1: ReadMappingType.UNIQUELY_MAPPED,
+    2: ReadMappingType.AMBIGUOUSLY_MAPPED,
+}
+_CODE_FROM_MTYPE = {v: k for k, v in _MTYPE_FROM_CODE.items()}
 
 
 def _prefetch_iter(it: Iterable, depth: int = 2) -> Iterator:
@@ -105,6 +146,16 @@ def _auto_batch(est_reads: int) -> int:
     return 32768 if est_reads >= 131_072 else 2048
 
 
+def _jax_record_width(r: int) -> int:
+    """The JAX package's record axis for ``r`` records: its shape bucket
+    (a power of two, at least 8; 2^24 steps past 2^24), its
+    ``KmerReference._pad_rows``."""
+    n = max(r, 8)
+    if n <= 1 << 24:
+        return 1 << (n - 1).bit_length()
+    return -(-n // (1 << 24)) * (1 << 24)
+
+
 def _lpad(max_len: int, k: int) -> int:
     """Row stride: the read length rounded up to a multiple of 32 (a
     multiple of 4 for the 2-bit packing)."""
@@ -112,14 +163,22 @@ def _lpad(max_len: int, k: int) -> int:
 
 
 class PseudoAlignment:
-    """Aggregates dumpalign read alignments against one KmerReference on
-    one device."""
+    """Aggregates read alignments against one KmerReference on one device
+    (reference kmer.py:532-699), with the read store of the align task."""
 
     def __init__(self, kmer_reference: KmerReference,
-                 device: torch.device) -> None:
+                 device: Union[str, torch.device]) -> None:
         self.kmer_reference = kmer_reference
         self.device = torch.device(device)
         r = kmer_reference.index.num_records
+        # read store: whole-batch blocks of mapping lists (only ever
+        # concatenated: save, load and the summary never index per read)
+        self._read_ids: List[str] = []
+        self._mtypes: List[int] = []
+        self._list_flat: List[np.ndarray] = []
+        self._list_counts: List[int] = []
+        self._seen_ids: set = set()
+        # aggregation state
         self.filtered_quality_reads = 0
         self.filtered_quality_kmers = 0
         self.filtered_hr_kmers = 0
@@ -162,8 +221,12 @@ class PseudoAlignment:
         return t
 
     def _fold_chunks(self, chunks: Iterable[Chunk], m, p, min_read_quality,
-                     min_kmer_quality, max_genomes) -> Tuple[FoldCarry, int]:
-        """Align and fold every chunk into a fresh device carry."""
+                     min_kmer_quality, max_genomes, store_reads: bool = False
+                     ) -> Tuple[FoldCarry, int, List[StoreLists]]:
+        """Align and fold every chunk into a fresh device carry; with
+        ``store_reads`` also each chunk's mapping lists, on their way to
+        the host (CUDA: pinned memory, non-blocking, complete once the
+        carry has been fetched)."""
         ref = self.kmer_reference
         k = ref.index.k
         probe_tab = ref.device_probe_tables(self.device)
@@ -172,12 +235,14 @@ class PseudoAlignment:
         carry = init_fold_carry(member.shape[1], self.device,
                                 start_batch=self._batch_no)
         n_batches = 0
-        for codes_p, qual, lengths, _got in chunks:
-            carry = align_fold_batch(
-                carry, probe_tab, member,
+        lists: List[StoreLists] = []
+        for codes_p, qual, lengths, got in chunks:
+            lengths_d = self._upload(lengths)
+            res = align_batch(
+                probe_tab, member,
                 self._upload(codes_p),
                 self._upload(qual) if use_qual else None,
-                self._upload(lengths),
+                lengths_d,
                 m, p, min_read_quality or 0, min_kmer_quality or 0,
                 max_genomes or 0,
                 k=k,
@@ -185,12 +250,25 @@ class PseudoAlignment:
                 has_mkq=min_kmer_quality is not None,
                 has_mg=max_genomes is not None,
             )
+            # zero-length rows are the tail padding of the final chunk
+            # (the FASTQ grammar requires a nonempty sequence line)
+            carry = _fold_agg(carry, aggregate_batch(res, lengths_d > 0))
+            if store_reads:
+                lists.append(StoreLists(*(
+                    t.to("cpu", non_blocking=True)
+                    for t in store_lists(res, int(got)))))
             n_batches += 1
-        return carry, n_batches
+        return carry, n_batches, lists
 
-    def _finish_run(self, carry: FoldCarry, n_batches: int) -> None:
-        """The run's one fetch, folded into the host totals."""
+    def _finish_run(self, carry: FoldCarry, n_batches: int,
+                    lists: List[StoreLists], ids: Optional[Sequence[str]]) -> None:
+        """The run's one fetch of the carry (which also completes the
+        lists' copies), the read store, then the host totals: a duplicate
+        read id raises before any total moves, as in the JAX package."""
         host = FoldCarry(*(t.cpu().numpy() for t in carry))
+        if lists:
+            with phase("read_store"):
+                self._store_lists(lists, ids)
         self._merge_fold_carry(host, self.kmer_reference.index.num_records)
         self._batch_no += n_batches
 
@@ -203,12 +281,17 @@ class PseudoAlignment:
         min_kmer_quality: Optional[int] = None,
         max_genomes: Optional[int] = None,
         batch_size: int = 1024,
+        store_reads: bool = False,
     ) -> None:
-        """Align a ``FASTAQStream`` (dumpalign: only the aggregation is
-        kept).  The native fill validates the input while it packs; a
-        validation failure raises ``NativeParseError`` and the caller
-        re-reads the file through the regex engine for the reference's
-        exact errors."""
+        """Align a ``FASTAQStream``.  The native fill validates the input
+        while it packs; a validation failure raises ``NativeParseError``
+        and the caller re-reads the file through the regex engine for the
+        reference's exact errors.
+
+        ``store_reads=True`` (the align task) also keeps every read's
+        mapping list; the ids come from one native pass over the input
+        after the validation, and the store fills only then, so an
+        invalid input never reaches it."""
         self._check_args(m, p, min_read_quality, min_kmer_quality, max_genomes)
         b = batch_size or _auto_batch(stream.est_records())
         use_qual = min_read_quality is not None or min_kmer_quality is not None
@@ -220,14 +303,24 @@ class PseudoAlignment:
         lpad = _lpad(stream.max_len, self.kmer_reference.index.k)
         while True:
             try:
-                carry, n_batches = self._fold_chunks(
+                carry, n_batches, lists = self._fold_chunks(
                     _prefetch_iter(stream.chunks_packed(b, lpad, use_qual)),
-                    m, p, min_read_quality, min_kmer_quality, max_genomes)
+                    m, p, min_read_quality, min_kmer_quality, max_genomes,
+                    store_reads)
                 break
             except LmaxExceeded:
                 lpad *= 2
         stream.finish_validation()  # NativeParseError discards the run
-        self._finish_run(carry, n_batches)
+        ids = None
+        if lists:
+            with phase("read_store"):
+                ids = native.fastq_ids(stream.raw_bytes(),
+                                       sum(int(x.word.shape[0]) for x in lists))
+            if ids is None:
+                # the id walk disagreed with the validated stream (should
+                # not happen): discard the run, the caller re-parses
+                raise NativeParseError(native.STATUS_NON_ASCII, 0, 0)
+        self._finish_run(carry, n_batches, lists, ids)
 
     def align_reads_from_container(
         self,
@@ -238,9 +331,11 @@ class PseudoAlignment:
         min_kmer_quality: Optional[int] = None,
         max_genomes: Optional[int] = None,
         batch_size: int = 1024,
+        store_reads: bool = True,
     ) -> None:
         """Align parsed records (the regex-engine fallback route): packed
-        on the host into the same chunks the stream yields."""
+        on the host into the same chunks the stream yields; the store's
+        ids are the records' own."""
         self._check_args(m, p, min_read_quality, min_kmer_quality, max_genomes)
         if hasattr(reads_container, "to_read_batch"):
             batch = reads_container.to_read_batch()
@@ -265,9 +360,10 @@ class PseudoAlignment:
                 lengths[:rows] = batch.lengths[start: start + rows]
                 yield pack_codes_2bit(codes), qual, lengths, rows
 
-        carry, n_batches = self._fold_chunks(
-            chunks(), m, p, min_read_quality, min_kmer_quality, max_genomes)
-        self._finish_run(carry, n_batches)
+        carry, n_batches, lists = self._fold_chunks(
+            chunks(), m, p, min_read_quality, min_kmer_quality, max_genomes,
+            store_reads)
+        self._finish_run(carry, n_batches, lists, batch.ids)
 
     def _merge_fold_carry(self, carry: FoldCarry, r: int) -> None:
         """Fold a fetched FoldCarry (numpy arrays) into the host totals."""
@@ -285,9 +381,60 @@ class PseudoAlignment:
         self._amb_by_rec += np.asarray(carry.amb_by_rec, dtype=np.int64)[:r]
         fb = np.asarray(carry.first_batch, dtype=np.int64)[:r]
         fk = np.asarray(carry.first_key, dtype=np.int64)[:r]
+        # first_key = row * (R + 2) + rank in the list; the JAX package's R
+        # is its padded record axis, and .aln files carry its values: the
+        # same order, re-encoded
+        fk = fk // (r + 2) * (_jax_record_width(r) + 2) + fk % (r + 2)
         fresh = (fb < FOLD_INF) & (self._first_batch == _INF)
         self._first_batch[fresh] = fb[fresh]
         self._first_key[fresh] = fk[fresh]
+
+    # -- read store (reference kmer.py:536-561) -------------------------------
+
+    def _store_lists(self, lists: Sequence[StoreLists], ids: Sequence[str]) -> None:
+        """Extend the read store by each batch's fetched lists, in input
+        order.  MRQ-filtered reads are not stored.  A duplicate id raises
+        ``AddingExistingRead`` at the first duplicate, with the reads
+        before it stored (the reference's add_read, kmer.py:551-561)."""
+        start = 0
+        for word, counts, flat in lists:
+            word = word.numpy()
+            counts = counts.numpy()
+            flat = flat.numpy()
+            rows = word.shape[0]
+            batch_ids = ids[start: start + rows]
+            start += rows
+            filtered = (word >> 2).astype(bool)
+            mtype = word & 3
+            kept_idx = np.nonzero(~filtered)[0]
+            kept_ids = ([batch_ids[i] for i in kept_idx] if filtered.any()
+                        else list(batch_ids))
+            new_ids = set(kept_ids)
+            if len(new_ids) != len(kept_ids) or not new_ids.isdisjoint(
+                    self._seen_ids):
+                # rare error path: per-read views only here (filtered rows
+                # have empty lists, so splits line up with the rows)
+                splits = np.split(flat, np.cumsum(counts)[:-1])
+                for i, rid in zip(kept_idx, kept_ids):
+                    if rid in self._seen_ids:
+                        raise AddingExistingRead(
+                            f"There already exists a read with identifier: {rid}")
+                    self._seen_ids.add(rid)
+                    self._read_ids.append(rid)
+                    self._mtypes.append(int(mtype[i]))
+                    self._list_flat.append(splits[i])
+                    self._list_counts.append(int(counts[i]))
+                raise AssertionError("duplicate detected by set check but "
+                                     "not found in walk")
+            self._seen_ids |= new_ids
+            self._read_ids.extend(kept_ids)
+            self._list_flat.append(flat)
+            self._mtypes.extend(mtype[kept_idx].tolist())
+            self._list_counts.extend(counts[kept_idx].tolist())
+
+    def get_reads_by_mapping_type(self, mapping_type: ReadMappingType) -> List[str]:
+        code = _CODE_FROM_MTYPE[mapping_type]
+        return [rid for rid, c in zip(self._read_ids, self._mtypes) if c == code]
 
     # -- summary (reference kmer.py:622-657) ----------------------------------
 
@@ -315,3 +462,86 @@ class PseudoAlignment:
             entry["unique_reads"] += int(self._unique_by_rec[rec])
             entry["ambiguous_reads"] += int(self._amb_by_rec[rec])
         return {"Statistics": stats, "Summary": genome_mapping}
+
+    def export_summary_to_json(self, json_file: str) -> None:
+        with open(json_file, "w") as fh:
+            json.dump(self.get_summary(), fh, indent=4)
+
+    def __repr__(self) -> str:
+        return json.dumps(self.get_summary(), indent=4)
+
+    # -- persistence: the JAX package's .aln container (shotgun-tpu-aln v1) ---
+
+    def save(self, align_file: str) -> None:
+        """Write the ``.aln`` npz: the same members, dtypes and meta as the
+        JAX package's ``save``, the ``.kdb`` bytes embedded."""
+        buf = io.BytesIO()
+        self.kmer_reference.save_to(buf)
+        flat = (np.concatenate(self._list_flat) if self._list_flat
+                else np.zeros(0, dtype=np.int64))
+        offsets = np.concatenate(
+            [[0], np.cumsum(np.asarray(self._list_counts, dtype=np.int64))])
+        meta = {
+            "format": "shotgun-tpu-aln",
+            "version": 1,
+            "flags": [
+                self.filter_read_quality_flag,
+                self.filter_kmer_quality_flag,
+                self.filter_max_genomes_flag,
+            ],
+            "counters": [
+                self._n_unique, self._n_ambiguous, self._n_unmapped,
+                self.filtered_quality_reads, self.filtered_quality_kmers,
+                self.filtered_hr_kmers, self._batch_no,
+            ],
+        }
+        with open(align_file, "wb") as fh:
+            np.savez(  # uncompressed, as the .kdb (reference.save_to)
+                fh,
+                meta=np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8),
+                read_ids=np.frombuffer(
+                    "\n".join(self._read_ids).encode("utf-8"), dtype=np.uint8),
+                mtypes=np.asarray(self._mtypes, dtype=np.int32),
+                list_flat=flat,
+                list_offsets=offsets,
+                unique_by_rec=self._unique_by_rec,
+                amb_by_rec=self._amb_by_rec,
+                first_batch=self._first_batch,
+                first_key=self._first_key,
+                kdb=np.frombuffer(buf.getvalue(), dtype=np.uint8),
+            )
+
+    @classmethod
+    def load(cls, align_file: str,
+             device: Union[str, torch.device] = "cpu") -> "PseudoAlignment":
+        """Read an ``.aln`` file of either package.  ``device`` is where
+        further reads would be aligned; the summary and the store need
+        none."""
+        try:
+            with np.load(align_file, allow_pickle=False) as data:
+                meta = json.loads(bytes(data["meta"]).decode("utf-8"))
+                if meta.get("format") != "shotgun-tpu-aln":
+                    raise KDBFormatError("not a shotgun-tpu aln file")
+                ref = KmerReference.load(io.BytesIO(bytes(data["kdb"])))
+                out = cls(ref, device)
+                ids_blob = bytes(data["read_ids"]).decode("utf-8")
+                out._read_ids = ids_blob.split("\n") if ids_blob else []
+                out._mtypes = data["mtypes"].tolist()
+                flat = data["list_flat"]
+                out._list_flat = [flat] if flat.size else []
+                out._list_counts = np.diff(data["list_offsets"]).tolist()
+                out._seen_ids = set(out._read_ids)
+                out._unique_by_rec = data["unique_by_rec"]
+                out._amb_by_rec = data["amb_by_rec"]
+                out._first_batch = data["first_batch"]
+                out._first_key = data["first_key"]
+                (out._n_unique, out._n_ambiguous, out._n_unmapped,
+                 out.filtered_quality_reads, out.filtered_quality_kmers,
+                 out.filtered_hr_kmers, out._batch_no) = meta["counters"]
+                (out.filter_read_quality_flag, out.filter_kmer_quality_flag,
+                 out.filter_max_genomes_flag) = meta["flags"]
+                return out
+        except KDBFormatError:
+            raise
+        except Exception as exc:
+            raise KDBFormatError(f"cannot read alignment file: {exc}") from exc

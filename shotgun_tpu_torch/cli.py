@@ -1,13 +1,14 @@
 """Command-line interface of the port (counterpart of
 ``shotgun_tpu/cli.py``): ``python -m shotgun_tpu_torch``.
 
-Same flag surface, validation order, defaulting quirks and error strings
-as the JAX package's CLI, which replicates the reference CLI.  Ported:
-``-t dumpalign`` with ``-r db.kdb --reads`` or ``-g -k --reads``.  The
-``-g`` route builds the database on the device for genomes of 4-64 Mbp,
-as the JAX package's does (``create_reference``), and on the host
-otherwise.  The other tasks, and ``dumpalign -a``, exit non-zero with
-"not yet ported".
+The four tasks of the reference CLI (``reference``, ``dumpref``,
+``align``, ``dumpalign``) with the JAX package's flag surface, per-task
+validation, defaulting quirks, error strings and exit codes, and its
+files (``.kdb``, ``.aln``).  Databases are built on the host, except for
+``dumpalign -g``, which builds on the device for genomes of 4-64 Mbp as
+the JAX package's does (``dumpalign_reference``): only dumpalign never
+needs the host postings.  k > 31 exits non-zero with "not yet ported"
+where a probe is needed.
 
 The device comes from ``$SHOTGUN_TPU_TORCH_DEVICE`` (default ``cuda``;
 asking for CUDA without it is an error, never a silent CPU run).
@@ -39,7 +40,11 @@ from shotgun_tpu.io.data_file import (
 )
 from shotgun_tpu.io.native import NativeParseError
 from shotgun_tpu.io.packing import pack_genomes
-from shotgun_tpu_torch.aligner import PseudoAlignment
+from shotgun_tpu_torch.aligner import (
+    AddingExistingRead,
+    NotValidatingUniqueMapping,
+    PseudoAlignment,
+)
 from shotgun_tpu_torch.reference import PROBE_ENV, KDBFormatError, KmerReference
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.profiling import PROFILER, phase
@@ -52,11 +57,26 @@ DEVICE_BUILD_MIN = 4_000_000
 DEVICE_BUILD_MAX = 64_000_000
 
 
+# ---------------------------------------------------------------------------
+# file validation (reference main.py:30-54)
+# ---------------------------------------------------------------------------
+
 def validate_file_readable(filepath: str, description: str) -> None:
     if not os.path.isfile(filepath):
         sys.exit(f"Error: {description} file '{filepath}' does not exist or is not a file.")
     if not os.access(filepath, os.R_OK):
         sys.exit(f"Error: {description} file '{filepath}' is not readable.")
+
+
+def validate_file_writable(filepath: str, description: str) -> None:
+    dir_path = os.path.dirname(filepath) or "."
+    if os.path.exists(filepath) and not os.access(filepath, os.W_OK):
+        sys.exit(f"Error: {description} file '{filepath}' is not writable.")
+    if not os.path.exists(filepath) and not os.access(dir_path, os.W_OK):
+        sys.exit(
+            f"Error: Directory '{dir_path}' is not writable to create "
+            f"{description} file '{filepath}'."
+        )
 
 
 def parse_arguments(args: Optional[List[str]] = None) -> argparse.Namespace:
@@ -89,6 +109,10 @@ def parse_arguments(args: Optional[List[str]] = None) -> argparse.Namespace:
     return parser.parse_args(args)
 
 
+# ---------------------------------------------------------------------------
+# databases
+# ---------------------------------------------------------------------------
+
 def _device_build_window() -> Tuple[int, int]:
     """($SHOTGUN_TPU_DEVICE_BUILD_MIN, _MAX); both defaults when either
     is malformed."""
@@ -100,17 +124,32 @@ def _device_build_window() -> Tuple[int, int]:
 
 
 def create_reference(fasta_file: str, kmer_size: int, filter_similar: bool,
-                     similarity_threshold: float, device: torch.device
-                     ) -> KmerReference:
-    """The database of ``-g``: built on ``device`` (stage
+                     similarity_threshold: float, device: torch.device,
+                     container=None) -> KmerReference:
+    """The database of ``-g``, built on the host (stage ``db_build``);
+    EXTSIM's overlap matrix runs on ``device``.  ``container``: the FASTA
+    already parsed."""
+    if container is None:
+        with phase("fasta_parse"):
+            container = FASTAFile(fasta_file).container
+    with phase("db_build"):
+        return KmerReference(kmer_size, container,
+                             filter_similar=filter_similar,
+                             similarity_threshold=similarity_threshold,
+                             device=device)
+
+
+def dumpalign_reference(fasta_file: str, kmer_size: int, filter_similar: bool,
+                        similarity_threshold: float, device: torch.device
+                        ) -> KmerReference:
+    """The database of ``dumpalign -g``: built on ``device`` (stage
     ``db_build_device``) when the JAX package's gate takes it -- no
     ``--filter-similar``, ``$SHOTGUN_TPU_DEVICE_BUILD`` unset or 1, the
     probe ``auto`` or ``sort``, and the genome codes inside the window --
-    and the device build takes the input; otherwise on the host (stage
-    ``db_build``)."""
+    and the device build takes the input; otherwise on the host.  Such a
+    reference has no host postings, so no other task may use it."""
     with phase("fasta_parse"):
         container = FASTAFile(fasta_file).container
-    genomes = None
     if (not filter_similar
             and os.environ.get("SHOTGUN_TPU_DEVICE_BUILD", "1") == "1"
             and os.environ.get(PROBE_ENV, "auto") in ("auto", "sort")):
@@ -123,21 +162,46 @@ def create_reference(fasta_file: str, kmer_size: int, filter_similar: bool,
                 ref = KmerReference.from_device_build(genomes, kmer_size, device)
             if ref is not None:
                 return ref
-    with phase("db_build"):
-        return KmerReference(kmer_size, genomes if genomes is not None else container,
-                             filter_similar=filter_similar,
-                             similarity_threshold=similarity_threshold)
+            container = genomes
+    return create_reference(fasta_file, kmer_size, filter_similar,
+                            similarity_threshold, device, container=container)
 
+
+def load_reference(reference_file: str) -> KmerReference:
+    try:
+        with phase("kdb_load"):
+            return KmerReference.load(reference_file)
+    except (KDBFormatError, gzip.BadGzipFile):
+        sys.exit("Error: Incorrect format of input file.")
+
+
+def save_reference(kmer_reference: KmerReference, reference_file: str) -> None:
+    with phase("kdb_save"):
+        kmer_reference.save(reference_file)
+
+
+def dump_reference(kmer_reference: KmerReference) -> None:
+    """The dumpref JSON, streamed (``KmerReference.write_summary``), and
+    the newline ``print`` ends the reference's with."""
+    with phase("dumpref"):
+        kmer_reference.write_summary(sys.stdout)
+        print()
+
+
+# ---------------------------------------------------------------------------
+# alignments
+# ---------------------------------------------------------------------------
 
 def create_alignment_from_reference(
     kmer_reference: KmerReference, reads_file: str, device: torch.device,
     m: int, p: int, min_read_quality: Optional[int],
     min_kmer_quality: Optional[int], max_genomes: Optional[int],
-    batch_size: int = DEFAULT_BATCH_SIZE,
+    batch_size: int = DEFAULT_BATCH_SIZE, store_reads: bool = False,
 ) -> PseudoAlignment:
     """The stream route (native fill, validation inside the fill); an
     input the native scanner rejects is re-read through the regex engine,
-    which raises the reference's exact errors."""
+    which raises the reference's exact errors.  ``store_reads``: the align
+    task's read store."""
     gates = (min_read_quality, min_kmer_quality, max_genomes)
     with phase("table_build"):
         kmer_reference.device_probe_tables(device)
@@ -147,7 +211,8 @@ def create_alignment_from_reference(
         try:
             with phase("stream_align"):
                 alignment.align_stream(stream, m, p, *gates,
-                                       batch_size=batch_size)
+                                       batch_size=batch_size,
+                                       store_reads=store_reads)
             return alignment
         except NativeParseError:
             pass
@@ -156,55 +221,118 @@ def create_alignment_from_reference(
     alignment = PseudoAlignment(kmer_reference, device)
     with phase("align", items=reads_container.num_records):
         alignment.align_reads_from_container(
-            reads_container, m, p, *gates, batch_size=batch_size)
+            reads_container, m, p, *gates, batch_size=batch_size,
+            store_reads=store_reads)
     return alignment
 
 
-def _dumpalign(args: argparse.Namespace, device: torch.device) -> None:
-    if args.referencefile and args.reads:
+def _print_summary(alignment: PseudoAlignment) -> None:
+    print(json.dumps(alignment.get_summary(), indent=4), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# tasks (reference main.py:317-402)
+# ---------------------------------------------------------------------------
+
+def _validate_task(args: argparse.Namespace) -> None:
+    """Per-task flag combinations.  Truthiness-based, as in the reference
+    (main.py:321-334): explicit 0 values pass."""
+    if args.task == "reference":
+        if (args.reads or args.alignfile or args.unique_threshold
+                or args.ambiguous_threhold or args.min_read_quality
+                or args.min_kmer_quality or args.max_genomes):
+            sys.exit("Error: For task 'reference', only -g, -k, -r, "
+                     "--filter-similar, and --similarity-threshold are allowed.")
+    elif args.task == "dumpref":
+        if (args.reads or args.alignfile or args.unique_threshold
+                or args.ambiguous_threhold or args.min_read_quality
+                or args.min_kmer_quality or args.max_genomes):
+            sys.exit("Error: For task 'dumpref', only -r or (-g and -k) with "
+                     "--filter-similar and --similarity-threshold are allowed.")
+    elif args.task == "align":
+        if not ((args.referencefile and args.reads and args.alignfile)
+                or (args.genomefile and args.kmer_size and args.reads
+                    and args.alignfile)):
+            sys.exit("Error: For task 'align', provide either -r (reference file) "
+                     "or -g and -k (genome file and kmer size) along with "
+                     "--reads and -a.")
+    elif args.task == "dumpalign":
+        if not ((args.referencefile and args.reads)
+                or (args.genomefile and args.kmer_size and args.reads)
+                or args.alignfile):
+            sys.exit("Error: For task 'dumpalign', provide either -r and --reads, "
+                     "or -g, -k, and --reads, or -a.")
+    else:
+        sys.exit("Error: Unsupported task.")
+
+
+def _run_task(args: argparse.Namespace, device: torch.device) -> None:
+    gates = (args.unique_threshold, args.ambiguous_threhold,
+             args.min_read_quality, args.min_kmer_quality, args.max_genomes)
+    if args.task == "reference":
+        validate_file_readable(args.genomefile, "Genome FASTA")
+        validate_file_writable(args.referencefile, "Reference database output")
+        save_reference(create_reference(
+            args.genomefile, args.kmer_size, args.filter_similar,
+            args.similarity_threshold, device), args.referencefile)
+    elif args.task == "dumpref":
+        if args.referencefile:
+            validate_file_readable(args.referencefile, "Reference database")
+            dump_reference(load_reference(args.referencefile))
+        elif args.genomefile and args.kmer_size:
+            validate_file_readable(args.genomefile, "Genome FASTA")
+            dump_reference(create_reference(
+                args.genomefile, args.kmer_size, args.filter_similar,
+                args.similarity_threshold, device))
+    elif args.task == "align":
         validate_file_readable(args.reads, "FASTQ reads")
-        try:
-            kmer_reference = KmerReference.load(args.referencefile)
-        except (KDBFormatError, gzip.BadGzipFile):
-            sys.exit("Error: Incorrect format of input file.")
+        validate_file_writable(args.alignfile, "Alignment output")
+        # -r wins over -g, as in the JAX package's CLI (its -g branch
+        # exits before its build-and-save, cli.py:442-457): the database
+        # is read from -r, which must exist, and -g is not read
+        if args.referencefile:
+            validate_file_readable(args.referencefile, "Reference database")
+        else:
+            validate_file_readable(args.genomefile, "Genome FASTA")
+            # the reference crashes here (it saves to None, main.py:372);
+            # the JAX package exits cleanly instead
+            sys.exit("Error: For task 'align' with -g, also provide -r "
+                     "to store the reference database.")
+        alignment = create_alignment_from_reference(
+            load_reference(args.referencefile), args.reads, device, *gates,
+            batch_size=args.batch_size, store_reads=True)
+        with phase("aln_save"):
+            alignment.save(args.alignfile)
+    elif args.referencefile and args.reads:  # dumpalign
+        validate_file_readable(args.reads, "FASTQ reads")
+        _print_summary(create_alignment_from_reference(
+            load_reference(args.referencefile), args.reads, device, *gates,
+            batch_size=args.batch_size))
     elif args.genomefile and args.kmer_size and args.reads:
         validate_file_readable(args.reads, "FASTQ reads")
         validate_file_readable(args.genomefile, "Genome FASTA")
-        kmer_reference = create_reference(
-            args.genomefile, args.kmer_size, args.filter_similar,
-            args.similarity_threshold, device)
-    elif args.alignfile:
-        sys.exit("Error: dumpalign -a is not yet ported to shotgun_tpu_torch.")
+        _print_summary(create_alignment_from_reference(
+            dumpalign_reference(args.genomefile, args.kmer_size,
+                                args.filter_similar, args.similarity_threshold,
+                                device),
+            args.reads, device, *gates, batch_size=args.batch_size))
     else:
-        sys.exit("Error: Provide either -g and -k with --reads, "
-                 "or -r with --reads, or -a.")
-    alignment = create_alignment_from_reference(
-        kmer_reference, args.reads, device,
-        args.unique_threshold, args.ambiguous_threhold,
-        args.min_read_quality, args.min_kmer_quality, args.max_genomes,
-        batch_size=args.batch_size,
-    )
-    print(json.dumps(alignment.get_summary(), indent=4), flush=True)
+        validate_file_readable(args.alignfile, "Alignment output")
+        try:
+            with phase("aln_load"):
+                alignment = PseudoAlignment.load(args.alignfile)
+        except (KDBFormatError, gzip.BadGzipFile):
+            sys.exit("Error: Incorrect format of input file.")
+        _print_summary(alignment)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_arguments(argv)
     if args.profile:
         PROFILER.enable()
+    _validate_task(args)
 
-    if args.task in ("reference", "dumpref", "align"):
-        sys.exit(f"Error: task '{args.task}' is not yet ported to "
-                 "shotgun_tpu_torch; use the shotgun_tpu CLI (main.py).")
-    if args.task != "dumpalign":
-        sys.exit("Error: Unsupported task.")
-    # truthiness-based, as in the reference: explicit 0 values pass
-    if not ((args.referencefile and args.reads)
-            or (args.genomefile and args.kmer_size and args.reads)
-            or args.alignfile):
-        sys.exit("Error: For task 'dumpalign', provide either -r and --reads, "
-                 "or -g, -k, and --reads, or -a.")
-
-    # the reference coerces explicit zeros to the defaults
+    # the reference coerces explicit zeros to the defaults (main.py:337-342)
     if not args.unique_threshold:
         args.unique_threshold = DEFAULT_UNIQUE_THRESHOLD
     if not args.ambiguous_threhold:
@@ -217,10 +345,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     except RuntimeError as err:
         sys.exit(f"Error: {err}")
     try:
-        _dumpalign(args, device)
+        _run_task(args, device)
     except gzip.BadGzipFile:
         sys.exit("Error: Incorrect format of input file.")
-    except (InvalidExtensionError, NoRecordsInDataFile, UserInputError) as err:
+    except (InvalidExtensionError, NoRecordsInDataFile,
+            NotValidatingUniqueMapping, AddingExistingRead,
+            UserInputError) as err:
         sys.exit(err)
     except NotImplementedError as err:
         sys.exit(f"Error: {err}")

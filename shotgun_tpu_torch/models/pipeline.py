@@ -14,6 +14,8 @@ Per batch of 2-bit packed reads, all on the device:
      quirks
   8. per-batch aggregation into per-record counters and first-encounter
      order keys, folded into a device-resident carry (fetched once a run)
+  9. for the align task's read store: each read's mapping list
+     (``store_lists``), compacted on the device and fetched per batch
 
 Every count is an integer: the JAX package counts through a float32
 ``jnp.dot`` (its ``pipeline.py:195-206``); here the set-member rows of
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from shotgun_tpu_torch.ops.encode import encode_window, window_quality_sums
@@ -338,6 +341,76 @@ def aggregate_batch(res: BatchResult, row_valid: torch.Tensor) -> AggResult:
         amb_by_rec=amb_by_rec,
         first_key=first_key,
     )
+
+
+class StoreLists(NamedTuple):
+    """One batch's per-read outputs as the read store keeps them (the
+    reference's per-read mapping type and genomes_mapped_to list,
+    kmer.py:536-549)."""
+
+    word: torch.Tensor    # int8  [B] mtype | read_filtered << 2
+    counts: torch.Tensor  # int32 [B] list length, 0 for MRQ-filtered rows
+    flat: torch.Tensor    # int64 [sum(counts)] record ids, row after row
+
+
+def store_lists(res: BatchResult, rows: int) -> StoreLists:
+    """The mapping list of each of the first ``rows`` reads, on the device.
+
+    A read's list is the winner for a unique read and the ambiguous
+    members otherwise, ordered by (first window, record), with a
+    downgraded winner first (the order of the JAX package's
+    ``_store_packed_reads``, its ``aligner.py:991-1017``).  Only the
+    in-list entries are sorted: they are compacted (``nonzero``, which
+    waits for the batch) and put in order by two stable sorts, by key and
+    then by row, so nothing here is [B, R] beyond the mask.  Replaces the
+    JAX form, which keeps a [B, R] key block of every batch on the device
+    and sorts the whole block on the host after the run."""
+    res = BatchResult(*(x[:rows] for x in res))
+    r = res.amb_mask.shape[1]
+    is_u = res.mtype == UNIQUELY_MAPPED
+    is_a = res.mtype == AMBIGUOUSLY_MAPPED
+    r_iota = torch.arange(r, device=res.mtype.device, dtype=torch.int64)[None, :]
+    winner_onehot = r_iota == res.winner[:, None]
+    in_list = torch.where(is_u[:, None], winner_onehot,
+                          res.amb_mask & is_a[:, None])
+    in_list &= ~res.read_filtered[:, None]
+    row, rec = in_list.nonzero(as_tuple=True)
+    key = res.fw_sel[row, rec].to(torch.int64) * r + rec
+    key = torch.where(res.downgraded[row] & (rec == res.winner[row]), -1, key)
+    by_key = torch.argsort(key, stable=True)
+    order = by_key[torch.argsort(row[by_key], stable=True)]
+    word = res.mtype | (res.read_filtered.to(_I32) << 2)
+    return StoreLists(word=word.to(torch.int8),
+                      counts=in_list.sum(dim=1, dtype=_I32),
+                      flat=rec[order])
+
+
+def store_lists_plain(word: np.ndarray, keys: np.ndarray, r: int
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """numpy reference for ``store_lists``, from the JAX package's packed
+    store words (its ``pack_store_words``: word = mtype | downgraded << 2 |
+    read_filtered << 3 | winner << 4, keys [B, R'] int16 or int32), as its
+    ``_store_packed_reads`` unpacks them (``aligner.py:991-1017``):
+    (word as ``store_lists`` packs it, counts, flat)."""
+    rows = word.size
+    mtype = word & 3
+    downgraded = ((word >> 2) & 1).astype(bool)
+    filtered = ((word >> 3) & 1).astype(bool)
+    winner = word >> 4
+    sent = (int(np.iinfo(np.int16).max) if keys.dtype == np.int16
+            else BIG)
+    in_list = keys[:, :r] < sent
+    r_iota = np.arange(r, dtype=np.int64)[None, :]
+    inf = np.iinfo(np.int64).max
+    key = np.where(in_list, keys[:, :r].astype(np.int64) * r + r_iota, inf)
+    ar = np.arange(rows)
+    key[ar, winner] = np.where(downgraded, -1, key[ar, winner])
+    order = np.argsort(key, axis=1, kind="stable")
+    in_sorted = np.take_along_axis(in_list, order, axis=1)
+    in_sorted &= ~filtered[:, None]
+    counts = in_sorted.sum(axis=1)
+    return ((mtype | filtered.astype(mtype.dtype) << 2).astype(np.int8),
+            counts.astype(np.int32), order[in_sorted])
 
 
 #: the probe tables ``align_batch`` dispatches on

@@ -1,11 +1,14 @@
 """``KmerReference`` for the port: the k-mer database facade over
 ``shotgun_tpu.index.build``'s ``KmerIndex`` (counterpart of
-``shotgun_tpu/reference.py``, the parts dumpalign needs).
+``shotgun_tpu/reference.py``, all but the single-k-mer lookups).
 
 Built on the host (``build_index``: native C++ for k <= 31, numpy for
-any k), loaded from the JAX package's ``.kdb`` npz container, or built
-on the device (``from_device_build``), and turned into device probe
-tables.  ``auto`` picks the sort join (``sort``) up to
+any k; EXTSIM's overlap matrix on the device from 256 genome
+identifiers, ``index/extsim.py``), loaded from and saved to the JAX
+package's ``.kdb`` npz container, or built on the device
+(``from_device_build``: it aligns, but has no host k-mer arrays to save
+or dump), and turned into device probe tables.  ``write_summary`` streams
+the dumpref JSON.  ``auto`` picks the sort join (``sort``) up to
 ``AUTO_HASH_MIN_KEYS`` distinct k-mers and the 16-slot ``hash16`` table
 above, as the JAX package does; ``hash`` is the 4-slot table.  k > 31
 raises ``NotImplementedError``; nothing substitutes another probe
@@ -16,17 +19,17 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Iterable, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Set, Union
 
 import numpy as np
 import torch
 
 from shotgun_tpu.errors import UserInputError
-from shotgun_tpu.index import extsim
 from shotgun_tpu.index.build import KmerIndex, build_index
 from shotgun_tpu.io.packing import GenomeArrays, pack_genomes
 from shotgun_tpu.io.records import SeqRecord
 from shotgun_tpu_torch.index.device_build import device_build_tables, device_hash_table
+from shotgun_tpu_torch.index.extsim import apply_similarity_filter
 from shotgun_tpu_torch.index.hashtable import ProbeTable, build_probe_table
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table, sorted_table_host
@@ -45,18 +48,45 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
         f"(ROADMAP.md, Queue 1 item {item})")
 
 
+_BASE_ASCII = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def _decode_kmer_strings(words: np.ndarray, k: int) -> List[str]:
+    """[C, nw] key-word rows -> k-mer strings, vectorized over rows
+    (``index.build.rolling_encode_words``' layout: word j holds window
+    bases [k-16(j+1), k-16j), the leftmost base in the most significant
+    bits)."""
+    c = words.shape[0]
+    out = np.empty((c, k), dtype=np.uint8)
+    for j in range(words.shape[1]):
+        t_hi = k - 16 * j
+        if t_hi <= 0:
+            break
+        t_lo = max(t_hi - 16, 0)
+        wcol = words[:, j]
+        for t in range(t_lo, t_hi):
+            shift = np.uint32(2 * (t_hi - 1 - t))
+            out[:, t] = ((wcol >> shift) & np.uint32(3)).astype(np.uint8)
+    ascii_rows = np.ascontiguousarray(_BASE_ASCII[out])
+    return np.char.decode(ascii_rows.view(f"S{k}").reshape(-1),
+                          "ascii").tolist()
+
+
 class _DeviceIndexStub:
     """Index facade of a device-built reference: the align and summary
-    paths read only k, the record descriptions and the key and set
-    counts; the key-shaped arrays live on the device.  Anything that needs
-    host k-mer arrays raises (counterpart of the JAX package's, its
-    ``reference.py:79-105``)."""
+    paths read only k, the record descriptions and lengths and the key
+    and set counts; the key-shaped arrays live on the device.  Anything
+    that needs host k-mer arrays raises (counterpart of the JAX package's,
+    its ``reference.py:79-105``)."""
 
-    def __init__(self, k, descriptions, num_kmers, num_sets):
+    def __init__(self, k, descriptions, record_lengths, num_kmers, num_sets):
         self.k = k
         self.descriptions = descriptions
+        self.record_lengths = record_lengths
+        self.kept = np.ones(len(descriptions), dtype=bool)
         self.num_kmers = num_kmers
         self.num_sets = num_sets
+        self.similarity_info = None
 
     @property
     def num_records(self) -> int:
@@ -65,7 +95,8 @@ class _DeviceIndexStub:
     def __getattr__(self, name):
         raise AttributeError(
             f"device-built reference has no host index array '{name}'; "
-            "build it on the host (KmerReference(k, container)) instead")
+            "build it on the host (KmerReference(k, container)) for "
+            "dumpref and .kdb files")
 
 
 class KmerReference:
@@ -81,7 +112,10 @@ class KmerReference:
         filter_similar: bool = False,
         similarity_threshold: float = 0.95,
         _index: Optional[KmerIndex] = None,
+        device: Union[str, torch.device] = "cpu",
     ) -> None:
+        """``device`` runs EXTSIM's overlap matrix (``filter_similar``)
+        from 256 genome identifiers on; nothing else here touches it."""
         if filter_similar and not (0 <= similarity_threshold <= 1):
             raise UserInputError("similarity_threshold must be between 0 and 1")
         if _index is not None:
@@ -95,14 +129,8 @@ class KmerReference:
                 genomes = pack_genomes(list(fasta_record_container))
             self.index = build_index(genomes, k)
             if filter_similar:
-                # EXTSIM runs its overlap matrix through jax at or above
-                # extsim._DEVICE_MIN_G identifiers
-                if len(set(self.index.descriptions)) >= extsim._DEVICE_MIN_G:
-                    raise _not_ported(
-                        f"--filter-similar with >= {extsim._DEVICE_MIN_G} "
-                        "genome identifiers (the EXTSIM device matmul)", 6)
-                self.index = extsim.apply_similarity_filter(
-                    self.index, similarity_threshold)
+                self.index = apply_similarity_filter(
+                    self.index, similarity_threshold, torch.device(device))
         self._probe_tables: Dict[str, ProbeTable] = {}
         self._set_member_dense: Optional[np.ndarray] = None
         self._device_tables: Dict[tuple, Union[HashTableDev, SortedTableDev]] = {}
@@ -124,6 +152,7 @@ class KmerReference:
             return None
         index = _DeviceIndexStub(
             k=k, descriptions=list(genomes.descriptions),
+            record_lengths=np.diff(genomes.offsets).astype(np.int64),
             num_kmers=built["num_kmers"], num_sets=built["num_sets"])
         self = cls(k, _index=index)
         r = index.num_records
@@ -137,8 +166,222 @@ class KmerReference:
         return self
 
     # ------------------------------------------------------------------
-    # .kdb loading (the JAX package's npz container)
+    # reference-parity accessors
     # ------------------------------------------------------------------
+
+    @property
+    def kmer_len(self) -> int:
+        return self.index.k
+
+    @property
+    def similarity_info(self) -> Optional[Dict[str, Dict[str, Any]]]:
+        return self.index.similarity_info
+
+    def _require_host_index(self, what: str) -> None:
+        if isinstance(self.index, _DeviceIndexStub):
+            raise AttributeError(
+                f"a device-built reference has no host k-mer arrays for {what}; "
+                "build it on the host (KmerReference(k, container))")
+
+    # ------------------------------------------------------------------
+    # dumpref summary (exact dict orders; reference kmer.py:300-329)
+    # ------------------------------------------------------------------
+
+    def write_summary(self, fh, chunk: int = 1 << 16) -> None:
+        """Stream the dumpref JSON to ``fh``, byte-identical to
+        ``json.dumps(self.get_summary(), indent=4)`` (the JAX package's
+        ``write_summary``).  Walks ``display_order`` in chunks: k-mer
+        strings decode vectorized, postings gather per chunk, per-genome
+        stats accumulate in flat arrays, and each chunk's text is written
+        at once, so extra memory is O(chunk).  Every dict order of the
+        reference is kept: k-mer first-seen, records per k-mer, genomes in
+        first-encounter order, and duplicate descriptions (the FIRST slot,
+        the LAST record's positions and length)."""
+        self._require_host_index("dumpref")
+        idx = self.index
+        gc_all = np.asarray(idx.genome_counts())
+        disp = idx.display_order()
+        u = int(disp.size)
+        r_count = idx.num_records
+        # collapse duplicate descriptions exactly like dict keys do
+        desc_ids: Dict[str, int] = {}
+        rec2desc = np.empty(max(r_count, 1), np.int64)
+        for rci, d in enumerate(idx.descriptions):
+            rec2desc[rci] = desc_ids.setdefault(d, len(desc_ids))
+        nd = max(len(desc_ids), 1)
+        desc_json = [json.dumps(d) for d in desc_ids]  # insertion order
+        uniq_d = np.zeros(nd, np.int64)
+        tot_d = np.zeros(nd, np.int64)
+        last_rec_d = np.full(nd, -1, np.int64)
+        first_pair_d = np.full(nd, np.iinfo(np.int64).max, np.int64)
+        pair_counter = 0
+
+        w = fh.write
+        w('{\n    "Kmers": {')
+        first_entry = True
+        for c0 in range(0, u, chunk):
+            kids = disp[c0: c0 + chunk]
+            starts = idx.post_offsets[kids].astype(np.int64)
+            lens = (idx.post_offsets[kids + 1] - starts).astype(np.int64)
+            total = int(lens.sum())
+            # flat posting gather: the postings of a k-mer are contiguous,
+            # (record, position) ascending
+            step = np.ones(total, np.int64)
+            step[0] = 0
+            cs = np.cumsum(lens)[:-1]
+            step[cs] = starts[1:] - (starts[:-1] + lens[:-1] - 1)
+            flat_idx = np.cumsum(step) + starts[0]
+            recs = idx.post_record[flat_idx].astype(np.int64)
+            poss = idx.post_pos[flat_idx]
+            kid_local = np.repeat(np.arange(kids.size, dtype=np.int64), lens)
+            newrec = np.empty(total, bool)
+            newrec[0] = True
+            newrec[1:] = ((kid_local[1:] != kid_local[:-1])
+                          | (recs[1:] != recs[:-1]))
+            b_idx = np.flatnonzero(newrec)
+            seg_end = np.append(b_idx[1:], total)
+            b_kid = kid_local[b_idx]
+            b_rec = recs[b_idx]
+            b_desc = rec2desc[b_rec]
+            # per-genome stats over distinct (kid, desc) pairs
+            ukey = np.unique(b_kid * np.int64(nd) + b_desc)
+            ud = ukey % nd
+            spec = gc_all[kids[(ukey // nd)]] == 1
+            tot_d += np.bincount(ud, minlength=nd)
+            uniq_d += np.bincount(ud[spec], minlength=nd)
+            last_rec_d[b_desc] = b_rec  # fancy assign: last writer wins
+            np.minimum.at(first_pair_d, b_desc,
+                          pair_counter + np.arange(b_idx.size))
+            pair_counter += int(b_idx.size)
+
+            kstrs = _decode_kmer_strings(idx.kmer_words[kids], idx.k)
+            # per-kid boundary ranges (b_kid is nondecreasing)
+            b_start = np.searchsorted(b_kid, np.arange(kids.size + 1))
+            pos_l = poss.tolist()
+            parts: List[str] = []
+            ap = parts.append
+            for i in range(kids.size):
+                ap("," if not first_entry else "")
+                first_entry = False
+                ap('\n        "')
+                ap(kstrs[i])
+                ap('": {')
+                bs, be = int(b_start[i]), int(b_start[i + 1])
+                if be - bs == 1:
+                    # single record (the common case)
+                    j = bs
+                    ap('\n            ')
+                    ap(desc_json[b_desc[j]])
+                    ap(': [\n                ')
+                    ap(",\n                ".join(
+                        map(str, pos_l[b_idx[j]: seg_end[j]])))
+                    ap('\n            ]\n        }')
+                else:
+                    # multiple records; duplicate descriptions keep the
+                    # FIRST slot but the LAST record's positions
+                    inner: Dict[int, str] = {}
+                    for j in range(bs, be):
+                        inner[int(b_desc[j])] = (
+                            '[\n                '
+                            + ",\n                ".join(
+                                map(str, pos_l[b_idx[j]: seg_end[j]]))
+                            + '\n            ]')
+                    ap('\n            ')
+                    ap(',\n            '.join(
+                        f'{desc_json[di]}: {body}'
+                        for di, body in inner.items()))
+                    ap('\n        }')
+            w("".join(parts))
+        w('\n    }' if not first_entry else '}')
+
+        # Summary: genomes in first-encounter order over the k-mer walk
+        live = np.flatnonzero(first_pair_d < np.iinfo(np.int64).max)
+        order = live[np.argsort(first_pair_d[live], kind="stable")]
+        rl = np.asarray(idx.record_lengths)
+        names = list(desc_ids)
+        summary = {
+            names[di]: {
+                "total_bases": int(rl[last_rec_d[di]]),
+                "unique_kmers": int(uniq_d[di]),
+                "multi_mapping_kmers": int(tot_d[di] - uniq_d[di]),
+            }
+            for di in order
+        }
+        w(',\n    "Summary": ')
+        w(json.dumps(summary, indent=4).replace("\n", "\n    "))
+        if idx.similarity_info is not None:
+            w(',\n    "Similarity": ')
+            w(json.dumps(idx.similarity_info, indent=4).replace("\n", "\n    "))
+        w("\n}")
+
+    def get_summary(self) -> Dict[str, Any]:
+        """The dumpref dict (the per-k-mer form ``write_summary`` streams)."""
+        self._require_host_index("dumpref")
+        idx = self.index
+        genome_counts = idx.genome_counts()
+        kmer_details: Dict[str, Dict[str, List[int]]] = {}
+        genome_summary: Dict[str, Dict[str, int]] = {}
+        genome_kmer_sets: Dict[str, Set[int]] = {}
+        for kid in idx.display_order():
+            kid = int(kid)
+            inner: Dict[str, List[int]] = {}
+            for r in idx.records_of_kmer(kid):
+                desc = idx.descriptions[r]
+                inner[desc] = sorted(int(x) for x in idx.positions_of(kid, r))
+                entry = genome_summary.setdefault(
+                    desc,
+                    {"total_bases": 0, "unique_kmers": 0, "multi_mapping_kmers": 0})
+                entry["total_bases"] = int(idx.record_lengths[r])
+                genome_kmer_sets.setdefault(desc, set()).add(kid)
+            kmer_details[idx.kmer_string(kid)] = inner
+        for desc, kset in genome_kmer_sets.items():
+            unique = sum(1 for kid in kset if genome_counts[kid] == 1)
+            genome_summary[desc]["unique_kmers"] = unique
+            genome_summary[desc]["multi_mapping_kmers"] = len(kset) - unique
+        summary: Dict[str, Any] = {"Kmers": kmer_details, "Summary": genome_summary}
+        if idx.similarity_info is not None:
+            summary["Similarity"] = idx.similarity_info
+        return summary
+
+    # ------------------------------------------------------------------
+    # .kdb files (the JAX package's npz container, version 2)
+    # ------------------------------------------------------------------
+
+    def save(self, ref_file) -> None:
+        """Write the .kdb container to a path or a binary file object."""
+        self._require_host_index(".kdb files")
+        if hasattr(ref_file, "write"):
+            self.save_to(ref_file)
+            return
+        with open(ref_file, "wb") as fh:
+            self.save_to(fh)
+
+    def save_to(self, fh) -> None:
+        """The JAX package's ``save_to``: an uncompressed npz (the 2-bit
+        key packs barely deflate), the meta keys in its order."""
+        self._require_host_index(".kdb files")
+        idx = self.index
+        meta = {
+            "format": "shotgun-tpu-kdb",
+            "version": 2,
+            "k": idx.k,
+            "descriptions": idx.descriptions,
+            "similarity_info": idx.similarity_info,
+        }
+        np.savez(
+            fh,
+            meta=np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8),
+            record_lengths=idx.record_lengths,
+            kept=idx.kept,
+            kmer_words=idx.kmer_words,
+            first_seen=idx.first_seen,
+            post_offsets=idx.post_offsets,
+            post_record=idx.post_record,
+            post_pos=idx.post_pos,
+            set_id=idx.set_id,
+            set_masks=idx.set_masks,
+            set_sizes=idx.set_sizes,
+        )
 
     @classmethod
     def load(cls, ref_file) -> "KmerReference":

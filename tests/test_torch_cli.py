@@ -1,9 +1,11 @@
 """The port's CLI (python -m shotgun_tpu_torch) on the CPU: byte-identical
-stdout to the recorded dumpalign goldens on every probe route and on the
-device database build, a .kdb written by the JAX package's CLI, the
-device-build gate, the error contracts of the ported task, and a guard
-that the port runs with jax unimportable."""
+stdout to every recorded golden (the 16 cases of tests/golden, dumpalign on
+every probe route and on the device database build, and the runlog cases
+the port runs), a .kdb written by the JAX package's CLI, the device-build
+gate, the error contracts of tests/test_cli.py, and a guard that the port
+runs with jax unimportable."""
 
+import gzip
 import json
 import os
 import subprocess
@@ -26,9 +28,18 @@ FA = os.path.join(DATA, "corpus.fa")
 FQ = os.path.join(DATA, "corpus.fq")
 DUMPALIGN_CASES = ["plain", "m2", "m0", "p0", "p5", "pneg", "mrq", "mkq",
                    "mg0", "mg1", "mg2", "combo", "sim-align"]
+DUMPREF_CASES = ["dumpref", "dumpref-sim75", "dumpref-sim0"]
+RUNLOG = os.path.join(GOLDEN, "runlog")
+#: the runlog cases the port runs: every k = 31 case, and dumpref at any
+#: k (a host-side task); dumpalign at k = 75 and 150 is not ported
+RUNLOG_CASES = ["rl-dumpref-sim75-small-k31", "rl-small-k31-flags-m1p1",
+                "rl-small-k31-m5p1", "rl-dumpref-small-k75",
+                "rl-dumpref-small-k150"]
 
 with open(os.path.join(GOLDEN, "manifest.json")) as _fh:
     _MANIFEST = json.load(_fh)
+with open(os.path.join(RUNLOG, "manifest.json")) as _fh:
+    _RUNLOG_MANIFEST = json.load(_fh)
 
 
 def _golden(name: str) -> str:
@@ -70,12 +81,37 @@ def _exit_message(capsys, argv) -> str:
 def test_manifest_lists_every_dumpalign_case():
     assert sorted(DUMPALIGN_CASES) == sorted(
         n for n, c in _MANIFEST.items() if c["args"][1] == "dumpalign")
+    assert sorted(DUMPALIGN_CASES + DUMPREF_CASES) == sorted(_MANIFEST)
+    assert set(RUNLOG_CASES) <= set(_RUNLOG_MANIFEST)
 
 
 @pytest.mark.parametrize("name", DUMPALIGN_CASES)
 def test_golden_dumpalign(name, capsys):
     cli.main(_args(name) + ["--batch-size", "16"])
     assert capsys.readouterr().out == _golden(name)
+
+
+@pytest.mark.parametrize("name", DUMPREF_CASES)
+def test_golden_dumpref(name, capsys):
+    cli.main(_args(name))
+    assert capsys.readouterr().out == _golden(name)
+
+
+@pytest.mark.parametrize("name", RUNLOG_CASES)
+def test_runlog_golden(name, capsys):
+    args = [a.replace("data/", os.path.join(RUNLOG, "data") + "/")
+            for a in _RUNLOG_MANIFEST[name]["args"]]
+    cli.main(args + ["--batch-size", "512"])
+    with gzip.open(os.path.join(RUNLOG, f"{name}.out.gz"), "rt") as fh:
+        assert capsys.readouterr().out == fh.read()
+
+
+def test_dumpref_of_saved_reference_equals_dumpref_of_genomes(tmp_path, capsys):
+    kdb = str(tmp_path / "db.kdb")
+    cli.main(["-t", "reference", "-g", FA, "-k", "11", "-r", kdb])
+    assert capsys.readouterr().out == ""
+    cli.main(["-t", "dumpref", "-r", kdb])
+    assert capsys.readouterr().out == _golden("dumpref")
 
 
 #: probe routes and the forced device build (the corpus is 2.6 kbp, under
@@ -122,6 +158,22 @@ def test_device_build_gate_routes_as_jax(env, device_built, capsys, monkeypatch,
     assert ("db_build_device" in stages) == device_built
 
 
+@pytest.mark.parametrize("task", ["reference", "dumpref"])
+def test_host_tasks_build_on_the_host(task, tmp_path, capsys, monkeypatch, stages):
+    """The device-build gate is dumpalign's alone: with its window opened
+    to the corpus, reference and dumpref -g still build on the host,
+    whose postings they save or dump."""
+    monkeypatch.setenv("SHOTGUN_TPU_DEVICE_BUILD_MIN", "0")
+    kdb = str(tmp_path / "db.kdb")
+    argv = ["-t", task, "-g", FA, "-k", "11"] + (["-r", kdb] if task == "reference" else [])
+    cli.main(argv + ["--profile"])
+    assert "db_build" in stages and "db_build_device" not in stages
+    if task == "reference":
+        capsys.readouterr()
+        cli.main(["-t", "dumpref", "-r", kdb])
+    assert capsys.readouterr().out == _golden("dumpref")
+
+
 def test_kdb_from_jax_reference_task(tmp_path, capsys):
     kdb = str(tmp_path / "corpus.kdb")
     jax_cli.main(["-t", "reference", "-g", FA, "-k", "11", "-r", kdb])
@@ -138,11 +190,17 @@ def test_corrupt_kdb(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,expect", [
-    (["-t", "reference", "-g", FA, "-k", "11", "-r", "x.kdb"], "not yet ported"),
-    (["-t", "dumpref", "-g", FA, "-k", "11"], "not yet ported"),
+    (["-t", "reference", "-g", FA, "-k", "11", "-r", "x.kdb", "--reads", FQ],
+     "Error: For task 'reference', only -g, -k, -r, --filter-similar, and "
+     "--similarity-threshold are allowed."),
+    (["-t", "dumpref", "-g", FA, "-k", "11", "-m", "2"],
+     "Error: For task 'dumpref', only -r or (-g and -k) with --filter-similar "
+     "and --similarity-threshold are allowed."),
     (["-t", "align", "-g", FA, "-k", "11", "--reads", FQ, "-a", "x.aln"],
-     "not yet ported"),
-    (["-t", "dumpalign", "-a", "x.aln"], "not yet ported"),
+     "Error: For task 'align' with -g, also provide -r to store the reference "
+     "database."),
+    (["-t", "dumpalign", "-a", "x.aln"],
+     "Error: Alignment output file 'x.aln' does not exist or is not a file."),
     (["-t", "bogus"], "Error: Unsupported task."),
     (["-t", "dumpalign", "-g", FA], "Error: For task 'dumpalign', provide"),
     (["-t", "dumpalign", "-g", FA, "-k", "11", "--reads", "missing.fq"],
@@ -150,6 +208,92 @@ def test_corrupt_kdb(tmp_path, capsys):
 ])
 def test_exits_nonzero(argv, expect, capsys):
     assert expect in _exit_message(capsys, argv)
+
+
+def _corrupt(tmp_path):
+    bad = tmp_path / "bad.kdb"
+    bad.write_bytes(b"garbage bytes here")
+    return str(bad)
+
+
+def _genome_txt(tmp_path):
+    bad = tmp_path / "genome.txt"
+    bad.write_text(">g\nACGT\n")
+    return str(bad)
+
+
+#: the error contracts of tests/test_cli.py (missing file, bad extension,
+#: unsupported task, per-task flags, corrupt database, missing inputs, the
+#: reference's typo'd long flag, a user-input ValueError), each through the
+#: port's CLI: the JAX CLI's message and a non-zero exit
+ERROR_CONTRACTS = {
+    "missing genome file": (lambda t: ["-t", "dumpref", "-g", "/nope/missing.fa",
+                                       "-k", "11"],
+                            "does not exist or is not a file"),
+    "bad extension": (lambda t: ["-t", "dumpref", "-g", _genome_txt(t), "-k", "3"],
+                      "Invalid file extension"),
+    "unsupported task": (lambda t: ["-t", "frobnicate"], "Error: Unsupported task."),
+    "reference rejects align flags": (
+        lambda t: ["-t", "reference", "-g", FA, "-k", "11", "-r",
+                   str(t / "x.kdb"), "--reads", FQ], "For task 'reference'"),
+    "align requires -a": (lambda t: ["-t", "align", "-g", FA, "-k", "11",
+                                     "--reads", FQ], "For task 'align'"),
+    "corrupt reference": (lambda t: ["-t", "dumpalign", "-r", _corrupt(t),
+                                     "--reads", FQ],
+                          "Error: Incorrect format of input file."),
+    "corrupt reference, dumpref": (lambda t: ["-t", "dumpref", "-r", _corrupt(t)],
+                                   "Error: Incorrect format of input file."),
+    "corrupt reference, align": (
+        lambda t: ["-t", "align", "-r", _corrupt(t), "--reads", FQ, "-a",
+                   str(t / "x.aln")], "Error: Incorrect format of input file."),
+    "corrupt alignment": (lambda t: ["-t", "dumpalign", "-a", _corrupt(t)],
+                          "Error: Incorrect format of input file."),
+    "dumpalign without inputs": (lambda t: ["-t", "dumpalign"],
+                                 "provide either -r and --reads"),
+    "corrected spelling rejected": (
+        lambda t: ["-t", "dumpalign", "-a", "x.aln", "--ambiguous-threshold", "1"],
+        "unrecognized arguments"),
+    "user-input ValueError": (lambda t: ["-t", "dumpalign", "-g", FA, "-k", "31",
+                                         "--reads", FQ, "-m", "-1"],
+                              "m must be bigger than or equal to 0"),
+    "unwritable output directory": (
+        lambda t: ["-t", "reference", "-g", FA, "-k", "11", "-r",
+                   "/nope/dir/x.kdb"],
+        "Error: Directory '/nope/dir' is not writable to create Reference "
+        "database output file '/nope/dir/x.kdb'."),
+}
+
+
+@pytest.mark.parametrize("case", list(ERROR_CONTRACTS))
+def test_error_contracts_match_jax(case, tmp_path, capsys):
+    argv_of, expect = ERROR_CONTRACTS[case]
+    msg = _exit_message(capsys, argv_of(tmp_path))
+    assert expect in msg and "Traceback" not in msg
+    with pytest.raises(SystemExit) as exc:
+        jax_cli.main(argv_of(tmp_path))
+    # argparse's usage lines name each package's own program; the error
+    # line is the last
+    want = str(exc.value.code) + capsys.readouterr().err
+    assert (msg.splitlines()[-1].replace("shotgun-tpu-torch", "shotgun-tpu")
+            == want.splitlines()[-1])
+
+
+def test_zero_thresholds_coerced_to_defaults(capsys):
+    """-m 0 / -p 0 become 1 / 1, as in the reference."""
+    cli.main(["-t", "dumpalign", "-g", FA, "-k", "11", "--reads", FQ,
+              "-m", "0", "-p", "0"])
+    assert capsys.readouterr().out == _golden("plain")
+
+
+def test_gzip_inputs_match_plain_golden(tmp_path, capsys):
+    fagz, fqgz = str(tmp_path / "corpus.fa.gz"), str(tmp_path / "corpus.fq.gz")
+    for src, dst in ((FA, fagz), (FQ, fqgz)):
+        with open(src, "rb") as fin, gzip.open(dst, "wb") as fout:
+            fout.write(fin.read())
+    cli.main(["-t", "dumpalign", "-g", fagz, "-k", "11", "--reads", fqgz])
+    assert capsys.readouterr().out == _golden("plain")
+    cli.main(["-t", "dumpref", "-g", fagz, "-k", "11"])
+    assert capsys.readouterr().out == _golden("dumpref")
 
 
 def test_bad_extension(tmp_path, capsys):
@@ -179,14 +323,19 @@ def test_unported_probes_raise(env, expect, monkeypatch, capsys):
 
 
 def test_filter_similar_at_256_genomes_is_not_ported(tmp_path, capsys):
-    """EXTSIM reaches jax from 256 genome identifiers on; the port stops
-    there with an error instead."""
+    """EXTSIM at 256 genome identifiers, where its overlap matrix runs on
+    the device in both packages: the port's dumpalign equals the JAX
+    CLI's, which runs its own XLA product there."""
     fa = tmp_path / "many.fa"
     fa.write_text("".join(f">g{i}\n{'ACGT'[i % 4] * 8}{'ACGTTGCA' * 3}\n"
                           for i in range(256)))
-    msg = _exit_message(capsys, ["-t", "dumpalign", "-g", str(fa), "-k", "11",
-                                 "--reads", FQ, "--filter-similar"])
-    assert "EXTSIM" in msg and "not yet ported" in msg
+    argv = ["-t", "dumpalign", "-g", str(fa), "-k", "11", "--reads", FQ,
+            "--filter-similar"]
+    cli.main(argv)
+    out = capsys.readouterr().out
+    jax_cli.main(argv)
+    assert out == capsys.readouterr().out
+    assert json.loads(out)["Statistics"]["unique_mapped_reads"] >= 0
 
 
 def test_cuda_requested_without_cuda(monkeypatch, capsys):
