@@ -6,7 +6,8 @@
 Phases, one line each:
   1. device: the card's name and its power limit (nvidia-smi);
   2. build: the CUDA kernels from shotgun_tpu_torch/ops/kernels/csrc with
-     nvcc, timed;
+     nvcc, and the port's native host library (g++, build/host/), at
+     once, timed; the loaded native library must be the port's;
   3. database build on the device against the host build, both timed, on
      the phase-5 genomes (32 Mbp) and the phase-6 strain panel: equal
      distinct keys, genome counts and set membership per key; then the
@@ -15,8 +16,9 @@ Phases, one line each:
      path's shapes (B = 32768 reads, row stride 160, k = 31, the
      device-assembled 16-slot table of phase 3 with a stash of planted
      entries; and H1 on the packed 32 Mbp genome as one row, as the device
-     build runs it): exact equality, and the time of each beside its plain
-     version;
+     build runs it), and H1 at its edge shapes (k, rows, row widths, a row
+     longer than a tile, each mode): exact equality, and the time of each
+     beside its plain version, its bytes and its byte bound at 3.35 TB/s;
   5. the main path: `-t dumpalign -g -k 31 --reads` through the port's CLI,
      in process, on 32 random 1 Mbp genomes (about 32M distinct 31-mers:
      the database builds on the device, and the auto probe picks the
@@ -72,8 +74,11 @@ Kernel H1 (encode_window) replaces two TPU kernels, the rolling encode and
 the quality sums, in one launch; its entry gives the time of each mode,
 and its launch count is that of every H1 launch on the main path (the
 device build's window encode and the batches, with the MKQ gate, so keys
-and sums together).  Each kernel's launches on every path (the main path
-and the four strain-panel routes, each counted from 0) are listed too.
+and sums together); each timed mode carries its own main-path launches.
+Each kernel's launches on every path (the main path and the four
+strain-panel routes, each counted from 0) are listed too.  No single
+PyTorch call computes either kernel's function, so ``library_ms`` is
+null, with the reason beside it.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -130,23 +136,6 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events,
-    after one warm-up call)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over the tensors; raises unless they are equal
     in shape and dtype (every output here is an integer, compared exactly)."""
@@ -182,18 +171,78 @@ def plant_stash(real_stash: np.ndarray, hit_keys: np.ndarray,
     return np.concatenate([real_stash, rows])
 
 
+def timed(fn, plain, out_bytes: int, iters: int, plain_iters: int = 5):
+    """(kernel ms, plain ms) on the card (``bench_encode.device_ms``: the
+    launches queued behind a sleep kernel), the outputs kept alive over a
+    rotation that passes the L2, so every launch writes to memory."""
+    from shotgun_tpu_torch.tools.bench_encode import device_ms, rotation
+
+    n = rotation(out_bytes)
+    ring = [None] * n
+
+    def keep(f):
+        return lambda i: ring.__setitem__(i % n, f())
+
+    ms = device_ms(keep(fn), iters)
+    ring[:] = [None] * n
+    plain_ms = device_ms(keep(plain), plain_iters)
+    ring[:] = [None] * n
+    return ms, plain_ms
+
+
+def h1_edge_checks(rng, device) -> tuple:
+    """H1 against its plain version at the edge shapes: k in {1, 2, 15,
+    31}; 1, 7 and 32768 rows of 8, 40 and 41 packed bytes; a single row
+    one window longer than a tile; keys only, sums only and both; sums
+    only at a row length that is no multiple of 4.  Rows are zero past a
+    random length, as the native fill pads them.  (cases, max |err|)."""
+    import torch
+
+    from shotgun_tpu_torch.ops.encode import H1_SPAN, encode_window, encode_window_plain
+
+    def padded(rows, length, lo, hi):
+        x = rng.integers(lo, hi, size=(rows, length), dtype=np.uint8)
+        x[np.arange(length)[None, :] >= rng.integers(length // 2, length + 1,
+                                                     size=rows)[:, None]] = 0
+        return torch.from_numpy(x).to(device)
+
+    cases, worst = 0, 0
+    for k in (1, 2, 15, 31):
+        tile_row = (H1_SPAN - 64 + k + 3) // 4  # W = tile + 1..4 windows
+        shapes = [(r, w) for r in (1, 7, 32768) for w in (8, 40, 41)] + [(1, tile_row)]
+        for rows, width in shapes:
+            packed = padded(rows, width, 0, 256)
+            qual = padded(rows, 4 * width, 33, 127)
+            for args in ((packed, k, None), (None, k, qual), (packed, k, qual)):
+                worst = max(worst, max_abs_err(
+                    [x for x in encode_window(*args) if x is not None],
+                    [x for x in encode_window_plain(*args) if x is not None]))
+                cases += 1
+        qual = padded(7, 163, 33, 127)
+        worst = max(worst, max_abs_err([encode_window(None, k, qual)[1]],
+                                       [encode_window_plain(None, k, qual)[1]]))
+        cases += 1
+    torch.cuda.synchronize()
+    return cases, worst
+
+
 def phase_kernels(tab, codes: np.ndarray, genomes, rng, device) -> list:
-    """Phase 4: each kernel against its plain version at main-path shapes."""
+    """Phase 4: each kernel against its plain version at main-path shapes
+    (and H1 at its edge shapes), timed beside its byte bound."""
     import torch
 
     from shotgun_tpu_torch.index.device_build import _host_prep
     from shotgun_tpu_torch.ops.encode import (
         encode_window,
         encode_window_plain,
+        mix32,
         pack_codes_2bit,
+        split_key,
     )
     from shotgun_tpu_torch.ops.probe import hash_probe, hash_probe_plain
+    from shotgun_tpu_torch.tools.bench_encode import bound_ms, h1_bytes
 
+    n_edge, err_edge = h1_edge_checks(rng, device)
     b, length = codes.shape
     padded = np.zeros((b, LPAD), dtype=np.uint8)
     padded[:, :length] = codes
@@ -213,7 +262,7 @@ def phase_kernels(tab, codes: np.ndarray, genomes, rng, device) -> list:
     torch.cuda.synchronize()
     err_enc = max_abs_err([keys, row_keys], [keys_p, row_keys_p])
     err_qual = max_abs_err(kq, kq_p)
-    del row_keys, row_keys_p
+    del row_keys, row_keys_p, kq, kq_p
 
     # windows past the read end reach into the zero padding: the table
     # misses them, so planting their keys gives stash-only hits
@@ -227,43 +276,83 @@ def phase_kernels(tab, codes: np.ndarray, genomes, rng, device) -> list:
     torch.cuda.synchronize()
     err_probe = max_abs_err(probe, probe_p)
     n_stash_hits = int((probe[2] >= 0x7FFF0000).sum().item())
-    if max(err_enc, err_qual, err_probe) != 0:
-        raise AssertionError(f"kernel != plain: encode {err_enc}, "
-                             f"encode+qual {err_qual}, probe {err_probe}")
+    if max(err_edge, err_enc, err_qual, err_probe) != 0:
+        raise AssertionError(f"kernel != plain: encode edges {err_edge}, encode "
+                             f"{err_enc}, encode+qual {err_qual}, probe {err_probe}")
     if n_stash_hits == 0:
         raise AssertionError("no window resolved through the planted stash")
+    del probe_p
 
-    times = {name: (cuda_ms(fn, 50), cuda_ms(plain, 5)) for name, fn, plain in (
-        ("keys", lambda: encode_window(packed_d, K),
-         lambda: encode_window_plain(packed_d, K)),
-        ("keys+qual", lambda: encode_window(packed_d, K, qual_d),
-         lambda: encode_window_plain(packed_d, K, qual_d)),
-        ("genome row keys", lambda: encode_window(row_d, K),
-         lambda: encode_window_plain(row_d, K)),
-        ("probe", lambda: hash_probe(tab.table, stash, keys),
-         lambda: hash_probe_plain(tab.table, stash, keys)),
-    )}
+    # H2's bytes: the keys, one 256-byte row of each distinct bucket this
+    # batch reads, the stash, and three int32 outputs a window
+    lo, hi = split_key(keys)
+    buckets = int(torch.unique(mix32(lo, hi) & (tab.table.shape[0] - 1)).numel())
+    row_bytes = tab.table.shape[1] * tab.table.shape[2] * 4
+    n = keys.numel()
+    probe_bytes = n * 8 + buckets * row_bytes + stash.numel() * 4 + n * 12
+    nwin = LPAD - K + 1
+    h1_modes = [
+        # (shape, mode, bytes, kernel, plain, output bytes)
+        (f"[{b}, {LPAD}]", "keys+sums", h1_bytes(b, LPAD // 4, K, True, True),
+         lambda: encode_window(packed_d, K, qual_d),
+         lambda: encode_window_plain(packed_d, K, qual_d), b * nwin * 12),
+        (f"[{b}, {LPAD}]", "keys", h1_bytes(b, LPAD // 4, K, True, False),
+         lambda: encode_window(packed_d, K), lambda: encode_window_plain(packed_d, K),
+         b * nwin * 8),
+        (f"[1, {row_d.shape[1] * 4}] (genome as one row)", "keys, one row",
+         h1_bytes(1, row_d.shape[1], K, True, False),
+         lambda: encode_window(row_d, K), lambda: encode_window_plain(row_d, K),
+         (row_d.shape[1] * 4 - K + 1) * 8),
+    ]
+    modes = []
+    for shape, mode, nbytes, fn, plain, out_bytes in h1_modes:
+        ms, plain_ms = timed(fn, plain, out_bytes, 200)
+        modes.append({"shape": shape, "mode": mode, "bytes": nbytes,
+                      "bound_ms": bound_ms(nbytes), "bound_share": bound_ms(nbytes) / ms,
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": None})
+    probe_ms, probe_plain_ms = timed(lambda: hash_probe(tab.table, stash, keys),
+                                     lambda: hash_probe_plain(tab.table, stash, keys),
+                                     n * 12, 100)
+    no_library = ("none: no single PyTorch call computes this function (%s); "
+                  "the plain version takes %s")
+    main_mode = modes[0]
     results = [
         {"name": "encode_window", "route": "cuda",
          "source": f"{CSRC}/encode_window.cu", "replaces": f"{PALLAS}:74",
-         "also_replaces": f"{PALLAS}:107", "max_abs_err": max(err_enc, err_qual),
-         "ms": times["keys+qual"][0], "plain_ms": times["keys+qual"][1],
-         "ms_keys_only": times["keys"][0],
-         "plain_ms_keys_only": times["keys"][1],
-         "ms_genome_row": times["genome row keys"][0],
-         "plain_ms_genome_row": times["genome row keys"][1]},
+         "also_replaces": f"{PALLAS}:107", "max_abs_err": max(err_edge, err_enc, err_qual),
+         "ms": main_mode["ms"], "plain_ms": main_mode["plain_ms"],
+         "bound_ms": main_mode["bound_ms"], "bound_by": "bytes",
+         "bound_share": main_mode["bound_share"], "bytes": main_mode["bytes"],
+         "library_ms": None,
+         "library_reason": no_library % (
+             "2-bit unpack, k-mer encode and window quality sums in one pass",
+             "an unpack, k shift-or steps and a cumsum"),
+         "edge_cases_checked": n_edge, "modes": modes},
         {"name": "hash_probe", "route": "cuda",
          "source": f"{CSRC}/hash_probe.cu", "replaces": f"{PALLAS}:162",
-         "max_abs_err": err_probe, "ms": times["probe"][0],
-         "plain_ms": times["probe"][1]},
+         "max_abs_err": err_probe, "ms": probe_ms, "plain_ms": probe_plain_ms,
+         "bound_ms": bound_ms(probe_bytes), "bound_by": "bytes",
+         "bound_share": bound_ms(probe_bytes) / probe_ms, "bytes": probe_bytes,
+         "distinct_buckets": buckets, "library_ms": None,
+         "library_reason": no_library % (
+             "bucket hash, bucket-row gather, slot and stash compare",
+             "a gather and min/max reductions")},
     ]
-    say("phase 4 kernels == plain (integer outputs, tolerance 0) at B=%d "
-        "L=%d k=%d (device-assembled table %s, stash %d rows, %d stash hits) "
-        "and on the genome as one row of %d bases: %s" % (
-            b, LPAD, K, tuple(tab.table.shape), stash.shape[0], n_stash_hits,
-            row_d.shape[1] * 4,
-            ", ".join(f"{name} {ms:.4f} ms vs plain {plain:.4f} ms"
-                      for name, (ms, plain) in times.items())))
+    say("phase 4 kernels == plain (integer outputs, tolerance 0): H1 at %d edge "
+        "cases (k 1/2/15/31; 1, 7, 32768 rows of 8/40/41 packed bytes; a row one "
+        "tile long; keys, sums, both) and at B=%d L=%d k=%d, and on the genome as "
+        "one row of %d bases; H2 on the device-assembled table %s (stash %d rows, "
+        "%d stash hits, %d distinct buckets read). Times (launches queued behind "
+        "a sleep kernel, outputs rotated past the L2): %s; H2 %.4f ms vs plain "
+        "%.4f ms, %d B, bound %.4f ms, %.1f%% of it" % (
+            n_edge, b, LPAD, K, row_d.shape[1] * 4, tuple(tab.table.shape),
+            stash.shape[0], n_stash_hits, buckets,
+            "; ".join("H1 %s %s %.4f ms vs plain %.4f ms, %d B, bound %.4f ms, "
+                      "%.1f%% of it" % (m["mode"], m["shape"], m["ms"], m["plain_ms"],
+                                        m["bytes"], m["bound_ms"], 100 * m["bound_share"])
+                      for m in modes),
+            probe_ms, probe_plain_ms, probe_bytes, bound_ms(probe_bytes),
+            100 * bound_ms(probe_bytes) / probe_ms))
     return results
 
 
@@ -306,6 +395,7 @@ def counted_run(argv, env=None, out_path=None, stream=True):
     PROFILER.stats.clear()
     PROFILER.enable()
     encode_window.launches = 0
+    encode_window.launches_by_mode.clear()
     hash_probe.launches = 0
     t0 = time.perf_counter()
     out = run_cli(argv + ["--profile"], env, out_path)
@@ -384,16 +474,18 @@ def phase_db_build(panels, device):
     return table
 
 
-def phase_main_path(fa: str, fq: str, gi: np.ndarray) -> dict:
+def phase_main_path(fa: str, fq: str, gi: np.ndarray) -> tuple:
     """Phase 5: dumpalign through the CLI, held against the known truth;
-    returns each kernel's launch count in that run."""
+    returns each kernel's launch count in that run, and H1's by mode."""
     from shotgun_tpu_torch.io import native_available
+    from shotgun_tpu_torch.ops.encode import encode_window
 
     if not native_available():
         raise AssertionError("the native FASTQ library did not build")
     out, stages, launches, wall, peak = counted_run(
         ["-t", "dumpalign", "-g", fa, "-k", str(K), "--reads", fq,
          "--min-kmer-quality", str(MKQ)])
+    by_mode = dict(encode_window.launches_by_mode)
     if "db_build_device" not in stages or "db_build" in stages:
         raise AssertionError(f"the database was not built on the device: {stages}")
     summary = json.loads(out)
@@ -418,12 +510,12 @@ def phase_main_path(fa: str, fq: str, gi: np.ndarray) -> dict:
     say("phase 5 main path: %d reads, %d genomes x %d bp, k=%d, device build + "
         "hash16: wall %.3f s (fasta %.3f s, db build on the device %.3f s, "
         "hash table assembly %.3f s, stream align %.3f s), %.0f reads/s "
-        "aligned, %.0f reads/s wall, peak device memory %d B, launches %s; "
-        "summary == truth" % (
+        "aligned, %.0f reads/s wall, peak device memory %d B, launches %s "
+        "(H1 by mode %s); summary == truth" % (
             n, N_GENOMES, GENOME_LEN, K, wall, stages.get("fasta_parse", 0.0),
             stages["db_build_device"], stages.get("table_build", 0.0),
-            align_s, n / align_s, n / wall, peak, launches))
-    return launches
+            align_s, n / align_s, n / wall, peak, launches, by_mode))
+    return launches, by_mode
 
 
 def phase_strains(fa: str, fq: str) -> dict:
@@ -688,6 +780,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    from shotgun_tpu_torch.io import native
     from shotgun_tpu_torch.ops.kernels.build import build, load_library
     from shotgun_tpu_torch.utils.synth import (
         make_genomes,
@@ -710,11 +803,20 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} card(s)")
     say(smi)
 
-    # 2. build
+    # 2. build: the native host library (g++) beside the CUDA kernels (nvcc)
+    t0 = time.perf_counter()
+    host_build = threading.Thread(target=native.build_library)
+    host_build.start()
     built = build(force=True)
     load_library()
+    host_build.join()
+    lib_path = native.library_path()
+    want_path = os.path.join(HERE, "build", "host", os.path.basename(native.LIB_PATH))
+    if lib_path != want_path:
+        raise AssertionError(f"native library {lib_path}, not the port's {want_path}")
     say(f"phase 2 build: nvcc sm_90a, {len(built.log.splitlines())} ptxas "
-        f"lines, {built.seconds:.3f} s")
+        f"lines, {built.seconds:.3f} s; the port's native library {lib_path} "
+        f"loaded; both built in {time.perf_counter() - t0:.3f} s")
     print(built.log, file=sys.stderr, flush=True)
 
     # data for phases 3 to 6
@@ -737,7 +839,7 @@ def main() -> int:
         write_workload(work, fa, fq)
         gi = work.genome_of
         del genomes, work
-        launches = phase_main_path(fa, fq, gi)
+        launches, h1_by_mode = phase_main_path(fa, fq, gi)
         torch.cuda.empty_cache()
 
         # 6. strain panel on four routes
@@ -761,6 +863,8 @@ def main() -> int:
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]
         kr["launches_by_path"] = {p: n[kr["name"]] for p, n in by_path.items()}
+        for m in kr.get("modes", ()):
+            m["launches_main_path"] = h1_by_mode.get(m["mode"], 0)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

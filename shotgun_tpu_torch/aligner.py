@@ -29,11 +29,11 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from shotgun_tpu.errors import UserInputError
-from shotgun_tpu.io import native
-from shotgun_tpu.io.native import LmaxExceeded, NativeParseError
-from shotgun_tpu.io.packing import pack_reads
-from shotgun_tpu.io.records import SeqRecord
+from shotgun_tpu_torch.errors import UserInputError
+from shotgun_tpu_torch.io import native
+from shotgun_tpu_torch.io.native import LmaxExceeded, NativeParseError
+from shotgun_tpu_torch.io.packing import pack_reads
+from shotgun_tpu_torch.io.records import SeqRecord
 from shotgun_tpu_torch.models.pipeline import (
     FOLD_INF,
     FoldCarry,
@@ -46,6 +46,7 @@ from shotgun_tpu_torch.models.pipeline import (
 )
 from shotgun_tpu_torch.ops.encode import pack_codes_2bit
 from shotgun_tpu_torch.reference import KDBFormatError, KmerReference
+from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.profiling import phase
 
 _INF = np.iinfo(np.int64).max
@@ -513,16 +514,18 @@ class PseudoAlignment:
 
     @classmethod
     def load(cls, align_file: str,
-             device: Union[str, torch.device] = "cpu") -> "PseudoAlignment":
-        """Read an ``.aln`` file of either package.  ``device`` is where
+             device: Optional[Union[str, torch.device]] = None) -> "PseudoAlignment":
+        """Read an ``.aln`` file of either package.  ``device`` (default
+        ``resolve_device()``, decided before the file is read) is where
         further reads would be aligned; the summary and the store need
         none."""
+        device = resolve_device(device)
         try:
             with np.load(align_file, allow_pickle=False) as data:
                 meta = json.loads(bytes(data["meta"]).decode("utf-8"))
                 if meta.get("format") != "shotgun-tpu-aln":
                     raise KDBFormatError("not a shotgun-tpu aln file")
-                ref = KmerReference.load(io.BytesIO(bytes(data["kdb"])))
+                ref = KmerReference.load(io.BytesIO(bytes(data["kdb"])), device)
                 out = cls(ref, device)
                 ids_blob = bytes(data["read_ids"]).decode("utf-8")
                 out._read_ids = ids_blob.split("\n") if ids_blob else []

@@ -25,21 +25,21 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from shotgun_tpu.constants import (
+from shotgun_tpu_torch.constants import (
     DEFAULT_AMBIGUOUS_THRESHOLD,
     DEFAULT_SIMILARITY_THRESHOLD,
     DEFAULT_UNIQUE_THRESHOLD,
 )
-from shotgun_tpu.errors import UserInputError
-from shotgun_tpu.io.data_file import (
+from shotgun_tpu_torch.errors import UserInputError
+from shotgun_tpu_torch.io.data_file import (
     FASTAFile,
     FASTAQFile,
     InvalidExtensionError,
     NoRecordsInDataFile,
     open_fastq_stream,
 )
-from shotgun_tpu.io.native import NativeParseError
-from shotgun_tpu.io.packing import pack_genomes
+from shotgun_tpu_torch.io.native import NativeParseError
+from shotgun_tpu_torch.io.packing import pack_genomes
 from shotgun_tpu_torch.aligner import (
     AddingExistingRead,
     NotValidatingUniqueMapping,
@@ -167,10 +167,10 @@ def dumpalign_reference(fasta_file: str, kmer_size: int, filter_similar: bool,
                             similarity_threshold, device, container=container)
 
 
-def load_reference(reference_file: str) -> KmerReference:
+def load_reference(reference_file: str, device: torch.device) -> KmerReference:
     try:
         with phase("kdb_load"):
-            return KmerReference.load(reference_file)
+            return KmerReference.load(reference_file, device)
     except (KDBFormatError, gzip.BadGzipFile):
         sys.exit("Error: Incorrect format of input file.")
 
@@ -278,7 +278,7 @@ def _run_task(args: argparse.Namespace, device: torch.device) -> None:
     elif args.task == "dumpref":
         if args.referencefile:
             validate_file_readable(args.referencefile, "Reference database")
-            dump_reference(load_reference(args.referencefile))
+            dump_reference(load_reference(args.referencefile, device))
         elif args.genomefile and args.kmer_size:
             validate_file_readable(args.genomefile, "Genome FASTA")
             dump_reference(create_reference(
@@ -299,14 +299,14 @@ def _run_task(args: argparse.Namespace, device: torch.device) -> None:
             sys.exit("Error: For task 'align' with -g, also provide -r "
                      "to store the reference database.")
         alignment = create_alignment_from_reference(
-            load_reference(args.referencefile), args.reads, device, *gates,
+            load_reference(args.referencefile, device), args.reads, device, *gates,
             batch_size=args.batch_size, store_reads=True)
         with phase("aln_save"):
             alignment.save(args.alignfile)
     elif args.referencefile and args.reads:  # dumpalign
         validate_file_readable(args.reads, "FASTQ reads")
         _print_summary(create_alignment_from_reference(
-            load_reference(args.referencefile), args.reads, device, *gates,
+            load_reference(args.referencefile, device), args.reads, device, *gates,
             batch_size=args.batch_size))
     elif args.genomefile and args.kmer_size and args.reads:
         validate_file_readable(args.reads, "FASTQ reads")
@@ -320,7 +320,7 @@ def _run_task(args: argparse.Namespace, device: torch.device) -> None:
         validate_file_readable(args.alignfile, "Alignment output")
         try:
             with phase("aln_load"):
-                alignment = PseudoAlignment.load(args.alignfile)
+                alignment = PseudoAlignment.load(args.alignfile, device)
         except (KDBFormatError, gzip.BadGzipFile):
             sys.exit("Error: Incorrect format of input file.")
         _print_summary(alignment)

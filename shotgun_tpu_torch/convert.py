@@ -8,10 +8,14 @@ feed both packages identical state.
 
 from __future__ import annotations
 
+from typing import Iterable, List
+
 import numpy as np
 import torch
 
-from shotgun_tpu.index.build import KmerIndex
+from shotgun_tpu_torch.index.build import KmerIndex
+from shotgun_tpu_torch.io.packing import GenomeArrays
+from shotgun_tpu_torch.io.records import SeqRecord
 from shotgun_tpu_torch.models.pipeline import FoldCarry
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
 from shotgun_tpu_torch.ops import probe_sort
@@ -57,7 +61,36 @@ def fold_carry(carry, device: torch.device) -> FoldCarry:
         for x in carry))
 
 
-def reference(index: KmerIndex) -> KmerReference:
-    """A ``KmerIndex`` (what a JAX ``KmerReference`` holds) -> the port's
-    ``KmerReference`` over the same arrays."""
-    return KmerReference(index.k, _index=index)
+#: the array fields of a ``KmerIndex``, in its declaration order
+_INDEX_ARRAYS = ("record_lengths", "kept", "kmer_words", "first_seen",
+                 "post_offsets", "post_record", "post_pos", "set_id",
+                 "set_masks", "set_sizes")
+
+
+def kmer_index(index) -> KmerIndex:
+    """A JAX ``KmerIndex`` -> the port's, field by field (the arrays as
+    numpy, the descriptions and the EXTSIM report copied)."""
+    return KmerIndex(
+        k=int(index.k), descriptions=list(index.descriptions),
+        similarity_info=(None if index.similarity_info is None
+                         else {d: dict(v) for d, v in index.similarity_info.items()}),
+        **{name: np.asarray(getattr(index, name)) for name in _INDEX_ARRAYS})
+
+
+def reference(index, device: torch.device) -> KmerReference:
+    """A JAX ``KmerIndex`` (what a JAX ``KmerReference`` holds) -> the
+    port's ``KmerReference`` over the same arrays, on ``device``."""
+    return KmerReference(int(index.k), _index=kmer_index(index), device=device)
+
+
+def genome_arrays(genomes) -> GenomeArrays:
+    """A JAX ``GenomeArrays`` -> the port's (the same records, codes and
+    offsets)."""
+    return GenomeArrays(descriptions=list(genomes.descriptions),
+                        codes=np.asarray(genomes.codes),
+                        offsets=np.asarray(genomes.offsets))
+
+
+def seq_records(records: Iterable) -> List[SeqRecord]:
+    """JAX ``SeqRecord``s -> the port's, field by field in their order."""
+    return [SeqRecord(list(rec._fields.items())) for rec in records]

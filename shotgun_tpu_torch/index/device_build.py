@@ -8,7 +8,7 @@ bucket probe (kernel H2) reads.  Only the multi-record sets' (set,
 record) pairs, at most ``PMAX``, come back to the host.
 
   1. host: 2-bit pack of the genome codes and the list of N runs
-     (``shotgun_tpu.io.native.pack2``, numpy without the native library);
+     (``io.native.pack2``, numpy without the native library);
   2. window keys by kernel H1 over the packed genome as one row; a window
      is valid when it holds no N (an ``index_add_`` of +1/-1 run deltas,
      then a prefix sum) and crosses no record start;
@@ -43,7 +43,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from shotgun_tpu.io import native as _native
+from shotgun_tpu_torch.io import native as _native
 from shotgun_tpu_torch.index.hashtable import STASH_CAP
 from shotgun_tpu_torch.ops.encode import M32, encode_window, mix32, pack_codes_2bit, split_key
 

@@ -1,9 +1,9 @@
 """EXTSIM, the greedy filter of highly similar genomes, with its overlap
 matrix on the device (counterpart of ``shotgun_tpu/index/extsim.py``).
 
-The host parts are the JAX package's own: the unique (k-mer, identifier)
-pairs (``_ident_pairs``), the float32 host product below
-``_DEVICE_MIN_G`` identifiers (``_overlap_matrix_host``) and the record
+The host parts are copies of the JAX package's: the unique (k-mer,
+identifier) pairs (``_ident_pairs``), the float32 host product below
+``_DEVICE_MIN_G`` identifiers (``overlap_matrix_host``) and the record
 filter (``build.filter_records``).  From ``_DEVICE_MIN_G`` identifiers on,
 the overlap counts O = M @ M.T of the 0/1 membership matrix M [G, U] run
 on the device, one k-mer chunk of M at a time: the chunk is scattered
@@ -17,24 +17,63 @@ MXU.  The greedy keep loop stays on the host, as there.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Tuple
+import os
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
-from shotgun_tpu.index.build import KmerIndex, filter_records
-from shotgun_tpu.index.extsim import (
-    _CHUNK,
-    _DEVICE_MIN_G,
-    _ident_pairs,
-    _overlap_matrix_host,
-)
+from shotgun_tpu_torch.index.build import KmerIndex, filter_records
 
 __all__ = ["apply_similarity_filter", "overlap_matrix", "overlap_matrix_device",
            "overlap_matrix_host"]
 
-#: the JAX package's host product (float32 numpy, exact below 2^24)
-overlap_matrix_host = _overlap_matrix_host
+#: identifiers below this count use the host float32 product; at or above
+#: it the chunks run on the device (the JAX package's split)
+_DEVICE_MIN_G = int(os.environ.get("SHOTGUN_TPU_EXTSIM_DEVICE_MIN_G", "256"))
+_CHUNK = 1 << 13
+
+
+def _ident_pairs(index: KmerIndex) -> Tuple[List[str], np.ndarray, np.ndarray, np.ndarray]:
+    """(idents, ident of record, kmer ids, ident ids) -- the unique
+    (k-mer, identifier) membership pairs, sorted k-mer-major."""
+    kmer_of_occ = np.repeat(
+        np.arange(index.num_kmers, dtype=np.int64), np.diff(index.post_offsets)
+    )
+    ident_of_rec: Dict[str, int] = {}
+    ident_idx = np.empty(max(index.num_records, 1), dtype=np.int64)
+    idents: List[str] = []
+    for rec, desc in enumerate(index.descriptions):
+        if desc not in ident_of_rec:
+            ident_of_rec[desc] = len(idents)
+            idents.append(desc)
+        ident_idx[rec] = ident_of_rec[desc]
+
+    n_id = max(len(idents), 1)
+    pairs = np.unique(
+        kmer_of_occ * n_id + ident_idx[index.post_record]
+    )
+    return (
+        idents,
+        ident_idx[: index.num_records],
+        pairs // n_id,
+        (pairs % n_id).astype(np.int32),
+    )
+
+
+def overlap_matrix_host(
+    kmer_u: np.ndarray, ident_u: np.ndarray, g: int, num_kmers: int
+) -> np.ndarray:
+    """Chunked float32 matmul on host (exact: 0/1 inputs, counts < 2^24)."""
+    out = np.zeros((g, g), dtype=np.float64)
+    for c0 in range(0, max(num_kmers, 1), _CHUNK):
+        s0, s1 = np.searchsorted(kmer_u, [c0, c0 + _CHUNK])
+        if s0 == s1:
+            continue
+        mc = np.zeros((g, min(_CHUNK, num_kmers - c0)), dtype=np.float32)
+        mc[ident_u[s0:s1], kmer_u[s0:s1] - c0] = 1.0
+        out += (mc @ mc.T).astype(np.float64)
+    return np.rint(out).astype(np.int64)
 
 
 @contextlib.contextmanager
@@ -78,7 +117,7 @@ def overlap_matrix(kmer_u: np.ndarray, ident_u: np.ndarray, g: int,
     identifiers, the device one from there on."""
     if g >= _DEVICE_MIN_G:
         return overlap_matrix_device(kmer_u, ident_u, g, num_kmers, device)
-    return _overlap_matrix_host(kmer_u, ident_u, g, num_kmers)
+    return overlap_matrix_host(kmer_u, ident_u, g, num_kmers)
 
 
 def apply_similarity_filter(index: KmerIndex, threshold: float,

@@ -19,6 +19,7 @@ fuses the 2-bit unpack, the rolling encode and the window quality sums.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,9 @@ _C3 = 0x27D4EB2F
 _GOLDEN = 0x9E3779B9
 M32 = 0xFFFFFFFF
 MAX_K = 31
+#: positions kernel H1 stages a block (``kSpan`` of encode_window.cu); a
+#: block owns the windows that start in the first ``H1_SPAN - 64`` of them
+H1_SPAN = 4096
 
 
 def mix32_np(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
@@ -131,8 +135,10 @@ def encode_window(
     None when its input is.
 
     A CUDA tensor launches the kernel on the current stream (counted in
-    ``encode_window.launches``, one per launch whatever it computes); a
-    CPU tensor takes ``encode_window_plain``."""
+    ``encode_window.launches``, one per launch whatever it computes, and
+    in ``encode_window.launches_by_mode`` under "keys", "sums" or
+    "keys+sums", with ", one row" for a single row such as the device
+    build's genome); a CPU tensor takes ``encode_window_plain``."""
     given = [x for x in (packed, qual) if x is not None]
     if not given:
         raise ValueError("encode_window needs packed codes or qual")
@@ -168,10 +174,14 @@ def encode_window(
         device.index, torch.cuda.current_stream(device).cuda_stream)
     check_status(lib, status, "encode_window")
     encode_window.launches += 1
+    mode = "keys+sums" if keys is not None and qsums is not None else (
+        "keys" if keys is not None else "sums")
+    encode_window.launches_by_mode[mode + ", one row" * (rows == 1)] += 1
     return keys, qsums
 
 
 encode_window.launches = 0
+encode_window.launches_by_mode = Counter()
 
 
 def rolling_encode(packed: torch.Tensor, k: int) -> torch.Tensor:

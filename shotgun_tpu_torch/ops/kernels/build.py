@@ -2,7 +2,8 @@
 
 Route (b) of the Hopper build recipe: ``nvcc`` compiles every
 ``csrc/*.cu`` (plain C entry points, no PyTorch headers, so the build takes
-seconds) for ``sm_90a`` into one shared library under ``build/kernels/``
+seconds; one process a source, all started together, then one link) for
+``sm_90a`` into one shared library under ``build/kernels/``
 at the repository root, loaded with ``ctypes``.  Nothing is built at
 import time: the first CUDA call of a kernel wrapper calls
 ``load_library()``, and a CPU-only machine without ``nvcc`` never gets
@@ -38,8 +39,8 @@ class BuildResult(NamedTuple):
     log: str         # nvcc's stderr (ptxas register / shared-memory report)
 
 
-def sources() -> List[str]:
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def sources(csrc_dir: str = CSRC_DIR) -> List[str]:
+    return sorted(glob.glob(os.path.join(csrc_dir, "*.cu")))
 
 
 def find_nvcc() -> str:
@@ -53,29 +54,61 @@ def find_nvcc() -> str:
     return cand
 
 
-def build(force: bool = False) -> BuildResult:
-    """Compile ``csrc/*.cu`` into ``build/kernels/`` unless up to date."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, LIB_NAME)
-    srcs = sources()
+def build(force: bool = False, csrc_dir: str = CSRC_DIR,
+          build_dir: str = BUILD_DIR) -> BuildResult:
+    """Compile ``csrc_dir/*.cu`` into ``build_dir`` unless up to date (by
+    default this checkout's ``csrc/`` into ``build/kernels/``; another
+    checkout's kernels build beside it for a comparison on one card)."""
+    os.makedirs(build_dir, exist_ok=True)
+    out = os.path.join(build_dir, LIB_NAME)
+    srcs = sources(csrc_dir)
     if (not force and os.path.exists(out)
             and os.path.getmtime(out) >= max(map(os.path.getmtime, srcs))):
         return BuildResult(out, 0.0, "")
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *srcs]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return BuildResult(out, time.perf_counter() - t0, proc.stderr)
+    # one nvcc a source, all at once, then one link
+    objs = [os.path.join(build_dir, f"{os.path.basename(src)}.{tag}.o") for src in srcs]
+    cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", obj, src] for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    logs = [proc.communicate() for proc in procs]
+    tmp = f"{out}.{tag}"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+    try:
+        for cmd, proc, (stdout, stderr) in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                                   f"{' '.join(cmd)}\n{stderr}{stdout}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                               f"{' '.join(link)}\n{proc.stderr}{proc.stdout}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for path in objs + [tmp]:
+            if os.path.exists(path):
+                os.remove(path)
+    return BuildResult(out, time.perf_counter() - t0, "".join(err for _, err in logs))
 
 
 _LOCK = threading.Lock()
 _LIB = None
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and return types on ``lib``."""
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.stt_encode_window.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, vp]
+    lib.stt_encode_window.restype = ci
+    lib.stt_hash_probe.argtypes = [vp, vp, i64, ci, vp, ci, vp, vp, vp,
+                                   i64, ci, vp]
+    lib.stt_hash_probe.restype = ci
+    lib.stt_error_string.argtypes = [ci]
+    lib.stt_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
@@ -83,16 +116,7 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build().path)
-            vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.stt_encode_window.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, vp]
-            lib.stt_encode_window.restype = ci
-            lib.stt_hash_probe.argtypes = [vp, vp, i64, ci, vp, ci, vp, vp, vp,
-                                           i64, ci, vp]
-            lib.stt_hash_probe.restype = ci
-            lib.stt_error_string.argtypes = [ci]
-            lib.stt_error_string.restype = ctypes.c_char_p
-            _LIB = lib
+            _LIB = declare(ctypes.CDLL(build().path))
     return _LIB
 
 

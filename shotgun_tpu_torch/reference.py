@@ -1,5 +1,5 @@
 """``KmerReference`` for the port: the k-mer database facade over
-``shotgun_tpu.index.build``'s ``KmerIndex`` (counterpart of
+``index.build``'s ``KmerIndex`` (counterpart of
 ``shotgun_tpu/reference.py``, all but the single-k-mer lookups).
 
 Built on the host (``build_index``: native C++ for k <= 31, numpy for
@@ -24,15 +24,16 @@ from typing import Any, Dict, Iterable, List, Optional, Set, Union
 import numpy as np
 import torch
 
-from shotgun_tpu.errors import UserInputError
-from shotgun_tpu.index.build import KmerIndex, build_index
-from shotgun_tpu.io.packing import GenomeArrays, pack_genomes
-from shotgun_tpu.io.records import SeqRecord
+from shotgun_tpu_torch.errors import UserInputError
+from shotgun_tpu_torch.index.build import KmerIndex, build_index
+from shotgun_tpu_torch.io.packing import GenomeArrays, pack_genomes
+from shotgun_tpu_torch.io.records import SeqRecord
 from shotgun_tpu_torch.index.device_build import device_build_tables, device_hash_table
 from shotgun_tpu_torch.index.extsim import apply_similarity_filter
 from shotgun_tpu_torch.index.hashtable import ProbeTable, build_probe_table
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table, sorted_table_host
+from shotgun_tpu_torch.utils.device import resolve_device
 
 PROBE_ENV = "SHOTGUN_TPU_PROBE"
 
@@ -112,10 +113,13 @@ class KmerReference:
         filter_similar: bool = False,
         similarity_threshold: float = 0.95,
         _index: Optional[KmerIndex] = None,
-        device: Union[str, torch.device] = "cpu",
+        device: Optional[Union[str, torch.device]] = None,
     ) -> None:
-        """``device`` runs EXTSIM's overlap matrix (``filter_similar``)
-        from 256 genome identifiers on; nothing else here touches it."""
+        """``device`` (default ``resolve_device()``: $SHOTGUN_TPU_TORCH_DEVICE,
+        else ``cuda``, which raises where there is none) runs EXTSIM's
+        overlap matrix (``filter_similar``) from 256 genome identifiers on;
+        nothing else here touches it."""
+        self.device = resolve_device(device)
         if filter_similar and not (0 <= similarity_threshold <= 1):
             raise UserInputError("similarity_threshold must be between 0 and 1")
         if _index is not None:
@@ -130,7 +134,7 @@ class KmerReference:
             self.index = build_index(genomes, k)
             if filter_similar:
                 self.index = apply_similarity_filter(
-                    self.index, similarity_threshold, torch.device(device))
+                    self.index, similarity_threshold, self.device)
         self._probe_tables: Dict[str, ProbeTable] = {}
         self._set_member_dense: Optional[np.ndarray] = None
         self._device_tables: Dict[tuple, Union[HashTableDev, SortedTableDev]] = {}
@@ -141,12 +145,14 @@ class KmerReference:
 
     @classmethod
     def from_device_build(cls, genomes: GenomeArrays, k: int,
-                          device: torch.device) -> Optional["KmerReference"]:
-        """A reference whose tables were built on ``device``
-        (``index/device_build.py``): it aligns and summarizes as a
-        host-built one does, but holds no host k-mer arrays.  None when
-        the device build does not take the input; callers then build on
-        the host."""
+                          device: Optional[Union[str, torch.device]] = None
+                          ) -> Optional["KmerReference"]:
+        """A reference whose tables were built on ``device`` (default
+        ``resolve_device()``; ``index/device_build.py``): it aligns and
+        summarizes as a host-built one does, but holds no host k-mer
+        arrays.  None when the device build does not take the input;
+        callers then build on the host."""
+        device = resolve_device(device)
         built = device_build_tables(genomes, k, device)
         if built is None:
             return None
@@ -154,7 +160,7 @@ class KmerReference:
             k=k, descriptions=list(genomes.descriptions),
             record_lengths=np.diff(genomes.offsets).astype(np.int64),
             num_kmers=built["num_kmers"], num_sets=built["num_sets"])
-        self = cls(k, _index=index)
+        self = cls(k, _index=index, device=device)
         r = index.num_records
         bits = np.unpackbits(built["set_masks"], axis=1, bitorder="little")
         dense = np.zeros((max(built["num_sets"], 1), r), dtype=np.uint8)
@@ -384,9 +390,13 @@ class KmerReference:
         )
 
     @classmethod
-    def load(cls, ref_file) -> "KmerReference":
+    def load(cls, ref_file, device: Optional[Union[str, torch.device]] = None
+             ) -> "KmerReference":
+        """A ``.kdb`` of either package, on ``device`` (default
+        ``resolve_device()``, decided before the file is read)."""
+        device = resolve_device(device)
         idx = cls._load_index(ref_file)
-        return cls(idx.k, _index=idx)
+        return cls(idx.k, _index=idx, device=device)
 
     @staticmethod
     def _load_index(ref_file) -> KmerIndex:

@@ -43,9 +43,9 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from shotgun_tpu.io.data_file import open_fastq_stream
 from shotgun_tpu_torch.aligner import PseudoAlignment, _lpad, _prefetch_iter
 from shotgun_tpu_torch.io import native_available
+from shotgun_tpu_torch.io.data_file import open_fastq_stream
 from shotgun_tpu_torch.models.pipeline import align_fold_batch, init_fold_carry
 from shotgun_tpu_torch.reference import PROBE_ENV, KmerReference
 from shotgun_tpu_torch.utils.device import resolve_device
@@ -233,7 +233,7 @@ def _run(args, device, genomes, work, res: dict, say) -> None:
             if ref is None:
                 raise RuntimeError("the device build does not take this workload")
         else:
-            ref = KmerReference(K, genomes)
+            ref = KmerReference(K, genomes, device=device)
         _sync(device)
         res["db_build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()

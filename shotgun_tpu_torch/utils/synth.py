@@ -1,6 +1,7 @@
-"""Synthetic workloads for the port's smoke run and profiling tool
-(counterpart of ``shotgun_tpu/utils/synth.py``, whose jax-free genome
-generator it re-exports).
+"""Synthetic workloads for the port's smoke run, profiling tool and tests
+(counterpart of ``shotgun_tpu/utils/synth.py``, whose generators
+``synth_genomes``, ``synth_reads``, ``to_fasta`` and ``to_fastq`` are
+copied here and give the same output from the same generator state).
 
 Random genomes from a ``numpy.random.Generator``, reads sampled from
 them with the genome each came from (the known truth of a dumpalign
@@ -12,15 +13,62 @@ their k-mers, and ``error_rate`` puts substitutions into the reads.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 
-from shotgun_tpu.io.packing import GenomeArrays
-from shotgun_tpu.utils.synth import synth_genomes, to_fasta
+from shotgun_tpu_torch.io.packing import GenomeArrays, ReadBatch
 
 __all__ = ["GenomeArrays", "Workload", "make_genomes", "sample_reads",
-           "synth_genomes", "to_fasta", "write_fastq", "write_workload"]
+           "synth_genomes", "synth_reads", "to_fasta", "to_fastq",
+           "write_fastq", "write_workload"]
+
+_BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def synth_genomes(rng: np.random.Generator, n_genomes: int, length: int
+                  ) -> GenomeArrays:
+    """``n_genomes`` uniform random genomes of ``length`` bases."""
+    codes = rng.integers(0, 4, size=n_genomes * length, dtype=np.uint8)
+    offsets = np.arange(n_genomes + 1, dtype=np.int64) * length
+    descriptions = [f"genome_{i}" for i in range(n_genomes)]
+    return GenomeArrays(descriptions=descriptions, codes=codes, offsets=offsets)
+
+
+def synth_reads(rng: np.random.Generator, genomes: GenomeArrays, n_reads: int,
+                read_len: int, quality_char: str = "I") -> ReadBatch:
+    """Error-free reads sampled uniformly from equal-length genomes."""
+    length = genomes.record_length(0)
+    gi = rng.integers(0, genomes.num_records, size=n_reads)
+    start = rng.integers(0, length - read_len + 1, size=n_reads)
+    idx = (genomes.offsets[gi] + start)[:, None] + np.arange(read_len, dtype=np.int64)[None, :]
+    codes = genomes.codes[idx]
+    qual = np.full((n_reads, read_len), ord(quality_char), dtype=np.uint8)
+    lengths = np.full(n_reads, read_len, dtype=np.int32)
+    ids = [f"read_{i}" for i in range(n_reads)]
+    return ReadBatch(ids=ids, codes=codes, qual=qual, lengths=lengths)
+
+
+def to_fasta(genomes: GenomeArrays) -> str:
+    """FASTA text, 80 bases a line."""
+    lines: List[str] = []
+    for i, desc in enumerate(genomes.descriptions):
+        lines.append(f">{desc}")
+        seq = _BASES[genomes.record_codes(i) % 4].tobytes().decode("ascii")
+        for j in range(0, len(seq), 80):
+            lines.append(seq[j: j + 80])
+    return "\n".join(lines) + "\n"
+
+
+def to_fastq(reads: ReadBatch) -> str:
+    """FASTQ text of a ``ReadBatch``."""
+    lines: List[str] = []
+    for i, rid in enumerate(reads.ids):
+        li = int(reads.lengths[i])
+        seq = _BASES[reads.codes[i, :li] % 4].tobytes().decode("ascii")
+        qual = reads.qual[i, :li].tobytes().decode("ascii")
+        lines += [f"@{rid}", seq, "+", qual]
+    return "\n".join(lines) + "\n"
 
 
 class Workload(NamedTuple):

@@ -2,8 +2,9 @@
 stdout to every recorded golden (the 16 cases of tests/golden, dumpalign on
 every probe route and on the device database build, and the runlog cases
 the port runs), a .kdb written by the JAX package's CLI, the device-build
-gate, the error contracts of tests/test_cli.py, and a guard that the port
-runs with jax unimportable."""
+gate, the error contracts of tests/test_cli.py, a guard that the port
+runs with jax and the JAX package unimportable, and the library entry
+points' default device."""
 
 import gzip
 import json
@@ -16,6 +17,9 @@ import torch
 
 from shotgun_tpu import cli as jax_cli
 from shotgun_tpu_torch import cli
+from shotgun_tpu_torch.aligner import PseudoAlignment
+from shotgun_tpu_torch.io.data_file import FASTAFile
+from shotgun_tpu_torch.reference import KmerReference
 from shotgun_tpu_torch.utils.profiling import PROFILER
 
 torch.set_num_threads(2)
@@ -347,22 +351,66 @@ def test_cuda_requested_without_cuda(monkeypatch, capsys):
 
 
 _NO_JAX = r"""
-import pkgutil, sys
+import ast, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any import of jax now raises ImportError
+sys.modules["shotgun_tpu"] = None  # and so does any import of the JAX package
 import shotgun_tpu_torch
 for mod in pkgutil.walk_packages(shotgun_tpu_torch.__path__, "shotgun_tpu_torch."):
     __import__(mod.name)
+# every import chip_smoke.py makes, at its top and inside its functions
+with open("chip_smoke.py") as fh:
+    for node in ast.walk(ast.parse(fh.read())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            exec(compile(ast.Module([node], []), "chip_smoke.py", "exec"), {})
 from shotgun_tpu_torch.cli import main
-main(sys.argv[1:])
-assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules
-               if sys.modules[m] is not None)
+from shotgun_tpu_torch.io import native
+assert native.library_path() == os.path.join(os.getcwd(), "build", "host",
+                                             "libshotgun_tpu_torch_io.so")
+fa, fq = sys.argv[1:3]
+main(sys.argv[3:])  # the plain golden
+with tempfile.TemporaryDirectory() as tmp:  # reference -> align -> dumpalign -a
+    kdb, aln = os.path.join(tmp, "c.kdb"), os.path.join(tmp, "c.aln")
+    main(["-t", "reference", "-g", fa, "-k", "11", "-r", kdb])
+    main(["-t", "align", "-r", kdb, "--reads", fq, "-a", aln])
+    main(["-t", "dumpalign", "-a", aln])
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m in ("jax", "jaxlib", "shotgun_tpu") or m.startswith(("jax.", "jaxlib.", "shotgun_tpu.")))]
+assert not loaded, loaded
 """
 
 
 def test_runs_with_jax_unimportable():
+    """With jax and the JAX package unimportable, every port module and
+    every import of chip_smoke.py loads, the native library is the
+    port's own under build/host/, and the CLI prints the plain golden,
+    directly and through reference -> align -> dumpalign -a."""
     env = dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cpu")
     out = subprocess.run(
-        [sys.executable, "-c", _NO_JAX] + _args("plain"),
+        [sys.executable, "-c", _NO_JAX, FA, FQ] + _args("plain"),
         cwd=REPO, capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout == _golden("plain")
+    assert out.stdout == _golden("plain") * 2
+
+
+ENTRY_POINTS = {
+    "KmerReference": lambda t: KmerReference(11, FASTAFile(FA).container),
+    "KmerReference.load": lambda t: KmerReference.load(str(t / "c.kdb")),
+    "KmerReference.from_device_build": lambda t: KmerReference.from_device_build(
+        FASTAFile(FA).container.to_genome_arrays(), 11),
+    "PseudoAlignment.load": lambda t: PseudoAlignment.load(str(t / "c.aln")),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
+    """Without a device the library entry points take resolve_device()'s:
+    $SHOTGUN_TPU_TORCH_DEVICE, else cuda, which raises where CUDA is
+    absent (made absent here, whatever the machine has)."""
+    cli.main(["-t", "reference", "-g", FA, "-k", "11", "-r", str(tmp_path / "c.kdb")])
+    cli.main(["-t", "align", "-r", str(tmp_path / "c.kdb"), "--reads", FQ,
+              "-a", str(tmp_path / "c.aln")])
+    assert ENTRY_POINTS[entry](tmp_path).device == torch.device("cpu")
+    monkeypatch.delenv("SHOTGUN_TPU_TORCH_DEVICE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available.. is false"):
+        ENTRY_POINTS[entry](tmp_path)

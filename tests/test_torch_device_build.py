@@ -11,7 +11,7 @@ import torch
 from shotgun_tpu.aligner import PseudoAlignment as JaxPseudoAlignment
 from shotgun_tpu.index.build import build_index
 from shotgun_tpu.index.device_build import device_build_tables as jax_device_build
-from shotgun_tpu.io.data_file import FASTAQFile, open_fastq_stream
+from shotgun_tpu.io.data_file import open_fastq_stream
 from shotgun_tpu.io.packing import pack_genomes
 from shotgun_tpu.io.records import SeqRecord
 from shotgun_tpu.reference import KmerReference as JaxKmerReference
@@ -20,6 +20,7 @@ from shotgun_tpu_torch import convert
 from shotgun_tpu_torch.aligner import PseudoAlignment
 from shotgun_tpu_torch.index import device_build as tdb
 from shotgun_tpu_torch.index import hashtable as tht
+from shotgun_tpu_torch.io import data_file as tdf
 from shotgun_tpu_torch.ops.probe import HashTableDev, probe_kmers
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
 from shotgun_tpu_torch.reference import KmerReference
@@ -47,7 +48,7 @@ def _membership(masks, sid, width):
 def _check_equal(genomes, k):
     """The port's build equals the host index and the JAX device build."""
     host = build_index(genomes, k)
-    dev = tdb.device_build_tables(genomes, k, CPU)
+    dev = tdb.device_build_tables(convert.genome_arrays(genomes), k, CPU)
     jdev = jax_device_build(genomes, k, JaxKmerReference._pad_rows)
     assert dev is not None and jdev is not None
     jax_tab = convert.device_build(jdev, CPU)
@@ -106,8 +107,8 @@ def test_device_build_rejects_unsupported(case):
     else:
         genomes, k = _genomes_from_strings(["ACGTACGTACGTACGT"] * (tdb.R_CAP + 1)), 11
     assert jax_device_build(genomes, k, JaxKmerReference._pad_rows) is None
-    assert tdb.device_build_tables(genomes, k, CPU) is None
-    assert KmerReference.from_device_build(genomes, k, CPU) is None
+    assert tdb.device_build_tables(convert.genome_arrays(genomes), k, CPU) is None
+    assert KmerReference.from_device_build(convert.genome_arrays(genomes), k, CPU) is None
 
 
 def test_forced_hash_collision_returns_none(monkeypatch):
@@ -120,20 +121,20 @@ def test_forced_hash_collision_returns_none(monkeypatch):
     genomes = _genomes_from_strings([own[0] + a, a + own[1], own[2] + b, b + own[3]])
     assert _check_equal(genomes, 21)["num_sets"] == 6
     monkeypatch.setattr(tdb, "_mix32", lambda x: torch.full_like(x, 12345))
-    assert tdb.device_build_tables(genomes, 21, CPU) is None
+    assert tdb.device_build_tables(convert.genome_arrays(genomes), 21, CPU) is None
 
 
 def test_host_prep_numpy_equals_native(monkeypatch):
     """Without the native library the numpy pack gives the same codes and
     the same N positions."""
-    from shotgun_tpu.io import native
+    from shotgun_tpu_torch.io import native
 
     genomes = _genomes_from_strings([
         "ACGTNNACGTACGTNACGTACGTACGTNNNNACGT", "NNNN",
         "ACGTACGTACGTACGTACGTACGTACGTACG", "TTTTNTTTT"])
-    codes_a, runs_a = tdb._host_prep(genomes)
+    codes_a, runs_a = tdb._host_prep(convert.genome_arrays(genomes))
     monkeypatch.setattr(native, "pack2", lambda *a, **kw: None)
-    codes_b, runs_b = tdb._host_prep(genomes)
+    codes_b, runs_b = tdb._host_prep(convert.genome_arrays(genomes))
     np.testing.assert_array_equal(codes_a, codes_b)
 
     def plane(runs):
@@ -157,7 +158,7 @@ def test_device_hash_table_probes_like_host(monkeypatch):
     genomes.codes[5_000: 6_000] = genomes.codes[:1_000]
     k = 21
     host = build_index(genomes, k)
-    built = tdb.device_build_tables(genomes, k, CPU)
+    built = tdb.device_build_tables(convert.genome_arrays(genomes), k, CPU)
     table, stash = tdb.device_hash_table(built)
     keys = built["keys"].numpy()
     ref_pt = tht.build_probe_table(
@@ -180,7 +181,7 @@ def test_device_hash_table_probes_like_host(monkeypatch):
     assert not hit[u:][~np.isin(absent, keys)].any()
 
     monkeypatch.setattr(KmerReference, "AUTO_HASH_MIN_KEYS", 1000)
-    ref = KmerReference.from_device_build(genomes, k, CPU)
+    ref = KmerReference.from_device_build(convert.genome_arrays(genomes), k, CPU)
     assert not any(m == "hash16" for m, _ in ref._device_tables)  # lazy
     assert ref.probe_method() == "hash16"
     assert isinstance(ref.device_probe_tables(CPU), HashTableDev)
@@ -193,7 +194,7 @@ def test_device_hash_table_over_budget_falls_back_to_sort(monkeypatch):
     monkeypatch.setattr(KmerReference, "AUTO_HASH_MIN_KEYS", 100)
     monkeypatch.setenv(tdb.HBM_BUDGET_ENV, "1000")
     genomes = synth_genomes(np.random.default_rng(5), 2, 800)
-    ref = KmerReference.from_device_build(genomes, 11, CPU)
+    ref = KmerReference.from_device_build(convert.genome_arrays(genomes), 11, CPU)
     assert tdb.device_hash_table(ref._built) is None
     assert isinstance(ref.device_probe_tables(CPU), SortedTableDev)
     assert ref._hash16_failed and ref.probe_method() == "sort"
@@ -213,7 +214,7 @@ def test_hbm_budget_check_follows_jax(budget, monkeypatch):
     seq = "".join(np.random.default_rng(6).choice(list("ACGT"), size=2_000))
     genomes = _genomes_from_strings([seq] * 20)
     k = 21
-    built = tdb.device_build_tables(genomes, k, CPU)
+    built = tdb.device_build_tables(convert.genome_arrays(genomes), k, CPU)
     jbuilt = jax_device_build(genomes, k, JaxKmerReference._pad_rows)
     assert built["num_windows"] == genomes.codes.size - k + 1
     monkeypatch.setenv(tdb.HBM_BUDGET_ENV, budget)
@@ -264,14 +265,15 @@ def test_device_built_aligns_like_host_built(route, probe, tmp_path, monkeypatch
     want = jpa.get_summary()
     assert want["Statistics"]["ambiguous_mapped_reads"] > 0
 
-    for ref in (KmerReference.from_device_build(genomes, k, CPU),
-                KmerReference(k, genomes)):
+    tgenomes = convert.genome_arrays(genomes)
+    for ref in (KmerReference.from_device_build(tgenomes, k, CPU),
+                KmerReference(k, tgenomes, device=CPU)):
         pa = PseudoAlignment(ref, CPU)
         if route == "stream":
-            pa.align_stream(open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
+            pa.align_stream(tdf.open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
                             batch_size=64)
         else:
-            pa.align_reads_from_container(FASTAQFile(str(fq)).container, 1, 1,
+            pa.align_reads_from_container(tdf.FASTAQFile(str(fq)).container, 1, 1,
                                           *gates, batch_size=64)
         assert ref.probe_method() == probe
         assert pa.get_summary() == want

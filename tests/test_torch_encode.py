@@ -124,3 +124,128 @@ def test_resolve_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device("cuda")
+
+
+# --- a numpy model of kernel H1's arithmetic (ops/kernels/csrc/encode_window.cu):
+# tiles of positions with their halo, the funnel extract of two 64-bit words
+# turned around by a bit reverse and a pair swap, and the window sums from a
+# tile's prefix sum.  Its index math is the kernel's, line for line.
+
+_U64 = np.uint64
+_M1 = _U64(0x5555555555555555)
+
+
+def _brev64(x: np.ndarray) -> np.ndarray:
+    """Bit reverse of uint64 values (``__brevll``)."""
+    for shift, mask in ((1, 0x5555555555555555), (2, 0x3333333333333333),
+                        (4, 0x0F0F0F0F0F0F0F0F), (8, 0x00FF00FF00FF00FF),
+                        (16, 0x0000FFFF0000FFFF)):
+        s, m = _U64(shift), _U64(mask)
+        x = ((x >> s) & m) | ((x & m) << s)
+    return (x >> _U64(32)) | (x << _U64(32))
+
+
+def _model_window_key(words: np.ndarray, f: np.ndarray, k: int) -> np.ndarray:
+    lo, hi = words[f >> 5], words[(f >> 5) + 1]
+    s = (2 * (f & 31)).astype(_U64)
+    x = (lo >> s) | ((hi << _U64(1)) << (_U64(63) - s))
+    r = _brev64(x)
+    r = ((r >> _U64(1)) & _M1) | ((r & _M1) << _U64(1))
+    return (r >> _U64(64 - 2 * k)).astype(np.int64)
+
+
+def encode_window_model(packed, qual, k, span=tenc.H1_SPAN):
+    """(keys, qsums) of kernel H1 as its blocks compute them: each block
+    owns the windows starting in ``span - 64`` positions of the flattened
+    batch and stages ``span`` positions, zero past the end."""
+    data = packed if packed is not None else qual
+    rows = data.shape[0]
+    length = packed.shape[1] * 4 if packed is not None else qual.shape[1]
+    tile = span - 64
+    total, nwin = rows * length, length - k + 1
+    flat_p = packed.reshape(-1) if packed is not None else None
+    flat_q = qual.reshape(-1).astype(np.int32) if qual is not None else None
+    keys = np.full(rows * nwin, -1, np.int64) if packed is not None else None
+    qsums = np.full(rows * nwin, -1, np.int32) if qual is not None else None
+    for f0 in range(0, total, tile):
+        f1 = min(f0 + tile, total)
+        b0, r0 = divmod(f0, length)
+        b1, r1 = divmod(f1, length)
+        g0 = b0 * nwin + min(r0, nwin)
+        n_out = b1 * nwin + min(r1, nwin) - g0
+        first = 0 if r0 < nwin else length - r0
+        w_first = r0 if r0 < nwin else 0
+        t = np.arange(n_out)
+        if nwin < tile:
+            ends = (w_first + t) // nwin
+        else:
+            ends = (t >= min(nwin - w_first, tile)).astype(np.int64)
+        f = first + t + ends * (k - 1)
+        assert f.size == 0 or (f.max() < tile and f.max() + k <= span)
+        if packed is not None:
+            staged = np.zeros(span // 4 + 8, np.uint8)
+            part = flat_p[f0 // 4: (f0 + span) // 4]
+            staged[: part.size] = part
+            words = staged[: span // 4].view("<u8")
+            keys[g0: g0 + n_out] = _model_window_key(words, f, k)
+        if qual is not None:
+            staged = np.zeros(span, np.int32)
+            part = flat_q[f0: f0 + span]
+            staged[: part.size] = part
+            prefix = np.concatenate([[0], np.cumsum(staged, dtype=np.int32)])
+            qsums[g0: g0 + n_out] = prefix[f + k] - prefix[f]
+    shape = (rows, nwin)
+    return (keys.reshape(shape) if keys is not None else None,
+            qsums.reshape(shape) if qsums is not None else None)
+
+
+#: (rows, packed row bytes, span): whole rows many to a tile, rows longer
+#: than a tile, a ragged last tile, and the kernel's own span
+MODEL_SHAPES = [(9, 10, 256), (3, 130, 256), (1, 257, 256), (2, 41, 4096),
+                (5, 8, 128)]
+
+
+@pytest.mark.parametrize("k", range(1, 32))
+def test_h1_model_equals_plain_and_jax(k):
+    """The kernel's arithmetic (numpy model) against ``encode_window_plain``
+    at every k, on shapes that cut rows and windows at tile edges, with
+    windows that reach into the zero padding; and against the JAX jnp
+    forms at the kernel's span."""
+    rng = np.random.default_rng(1000 + k)
+    for rows, width, span in MODEL_SHAPES:
+        length = 4 * width
+        if length < k:
+            continue
+        codes = _padded(rng, rows, length, 0, 4)
+        qual = _padded(rng, rows, length, 33, 127)
+        packed = tenc.pack_codes_2bit(codes)
+        keys, qsums = encode_window_model(packed, qual, k, span)
+        want_k, want_q = tenc.encode_window_plain(
+            torch.from_numpy(packed), k, torch.from_numpy(qual))
+        np.testing.assert_array_equal(keys, want_k.numpy())
+        np.testing.assert_array_equal(qsums, want_q.numpy())
+        if span == tenc.H1_SPAN:  # one JAX compile a k
+            lo, hi = jenc.rolling_encode_jnp(jnp.asarray(codes), k)
+            np.testing.assert_array_equal(keys, _key64(lo, hi))
+            np.testing.assert_array_equal(
+                qsums, np.asarray(jenc.window_quality_sums(jnp.asarray(qual), k)))
+        only_keys, none = encode_window_model(packed, None, k, span)
+        assert none is None
+        np.testing.assert_array_equal(only_keys, keys)
+
+
+@pytest.mark.parametrize("k", [1, 2, 15, 31])
+def test_h1_model_equals_pallas_at_the_kernel_span(k):
+    """At the kernel's own span, a single row one tile plus a window long
+    and a batch of 40-byte rows: the model equals the JAX Pallas kernels
+    in interpret mode."""
+    rng = np.random.default_rng(k)
+    for rows, length in ((1, tenc.H1_SPAN - 64 + k + 3 - (k + 3) % 4), (7, 160)):
+        codes = _padded(rng, rows, length, 0, 4)
+        qual = _padded(rng, rows, length, 33, 127)
+        keys, qsums = encode_window_model(tenc.pack_codes_2bit(codes), qual, k)
+        assert keys.shape[1] == length - k + 1
+        lo, hi = rolling_encode_pallas(jnp.asarray(codes), k, interpret=True)
+        np.testing.assert_array_equal(keys, _key64(lo, hi))
+        np.testing.assert_array_equal(
+            qsums, np.asarray(window_qsums_pallas(jnp.asarray(qual), k, interpret=True)))

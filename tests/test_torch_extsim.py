@@ -14,7 +14,7 @@ import torch
 from shotgun_tpu import cli as jax_cli
 from shotgun_tpu.index import extsim as jextsim
 from shotgun_tpu.index.build import build_index
-from shotgun_tpu_torch import cli
+from shotgun_tpu_torch import cli, convert
 from shotgun_tpu_torch.index import extsim
 from shotgun_tpu_torch.utils.synth import make_genomes
 
@@ -75,7 +75,7 @@ def test_similarity_filter_matches_jax(n_genomes, threshold):
     genomes = make_genomes(rng, n_genomes, 600, strains=16, mutation_rate=0.01)
     index = build_index(genomes, 15)
     want = jextsim.apply_similarity_filter(index, threshold)
-    got = extsim.apply_similarity_filter(index, threshold, CPU)
+    got = extsim.apply_similarity_filter(convert.kmer_index(index), threshold, CPU)
     assert got.similarity_info == want.similarity_info
     assert got.descriptions == want.descriptions
     for name in ("kmer_words", "post_offsets", "post_record", "post_pos",

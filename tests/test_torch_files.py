@@ -16,7 +16,7 @@ from shotgun_tpu import cli as jax_cli
 from shotgun_tpu.index.build import build_index
 from shotgun_tpu.io.packing import pack_genomes
 from shotgun_tpu.io.records import SeqRecord
-from shotgun_tpu_torch import cli
+from shotgun_tpu_torch import cli, convert
 from shotgun_tpu_torch.aligner import PseudoAlignment
 from shotgun_tpu_torch.reference import KmerReference
 
@@ -174,7 +174,8 @@ def test_device_built_reference_has_nothing_to_save(tmp_path):
     seqs = ["ACGTTGCAGGCTAACGTTAGC" * 3, "TTGACCGATCGGATCCAGTAC" * 3]
     genomes = pack_genomes([SeqRecord([("description", f"g{i}"), ("genome", s)])
                             for i, s in enumerate(seqs)])
-    ref = KmerReference.from_device_build(genomes, 11, torch.device("cpu"))
+    tgenomes = convert.genome_arrays(genomes)
+    ref = KmerReference.from_device_build(tgenomes, 11, torch.device("cpu"))
     assert ref is not None
     assert ref.index.record_lengths.tolist() == [63, 63]
     assert ref.index.kept.all() and ref.similarity_info is None
@@ -184,6 +185,6 @@ def test_device_built_reference_has_nothing_to_save(tmp_path):
         with pytest.raises(AttributeError, match="device-built reference"):
             call()
     assert not path.exists()
-    host = KmerReference(11, genomes)
+    host = KmerReference(11, tgenomes, device="cpu")
     assert host.kmer_len == 11
     assert host.index.num_kmers == build_index(genomes, 11).num_kmers

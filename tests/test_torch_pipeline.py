@@ -20,6 +20,7 @@ from shotgun_tpu.utils.synth import synth_genomes, synth_reads, to_fastq
 from shotgun_tpu_torch import convert
 from shotgun_tpu_torch.aligner import PseudoAlignment
 from shotgun_tpu_torch.index.hashtable import build_probe_table
+from shotgun_tpu_torch.io import data_file as tdf
 from shotgun_tpu_torch.models import pipeline as tpipe
 
 torch.set_num_threads(2)
@@ -248,9 +249,9 @@ def test_align_stream_matches_jax_hash16(tmp_path, monkeypatch, gates):
     jpa = JaxPseudoAlignment(JaxKmerReference(k, _index=index))
     jpa.align_stream(open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
                      batch_size=64)
-    ref = convert.reference(index)
+    ref = convert.reference(index, CPU)
     pa = PseudoAlignment(ref, CPU)
-    pa.align_stream(open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
+    pa.align_stream(tdf.open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
                     batch_size=64)
     assert ref.probe_method() == "hash16"
     assert pa.get_summary() == jpa.get_summary()
@@ -262,15 +263,15 @@ def test_container_route_equals_stream_route(tmp_path):
     genomes, reads = _workload(13)
     fq = tmp_path / "reads.fq"
     fq.write_text(to_fastq(reads))
-    ref = convert.reference(build_index(genomes, 21))
+    ref = convert.reference(build_index(genomes, 21), CPU)
     gates = (70, 74, 2)
     pa_s = PseudoAlignment(ref, CPU)
-    pa_s.align_stream(open_fastq_stream(str(fq), lazy=True), 2, 1, *gates,
+    pa_s.align_stream(tdf.open_fastq_stream(str(fq), lazy=True), 2, 1, *gates,
                       batch_size=50)
     pa_c = PseudoAlignment(ref, CPU)
     pa_c.align_reads_from_container(
-        [_record(reads, i) for i in range(reads.num_reads)], 2, 1, *gates,
-        batch_size=0)
+        convert.seq_records(_record(reads, i) for i in range(reads.num_reads)),
+        2, 1, *gates, batch_size=0)
     assert pa_s.get_summary() == pa_c.get_summary()
 
 
@@ -304,8 +305,8 @@ def test_align_stream_restarts_at_double_stride(tmp_path, monkeypatch):
         return fold(self, *args)
 
     monkeypatch.setattr(PseudoAlignment, "_fold_chunks", counting_fold)
-    pa = PseudoAlignment(convert.reference(index), CPU)
-    pa.align_stream(open_fastq_stream(str(fq), lazy=True), 1, 1, batch_size=32)
+    pa = PseudoAlignment(convert.reference(index, CPU), CPU)
+    pa.align_stream(tdf.open_fastq_stream(str(fq), lazy=True), 1, 1, batch_size=32)
     assert pa.get_summary() == jpa.get_summary()
     assert len(passes) == 3  # strides 32 -> 64 -> 128
     assert pa._batch_no == 7

@@ -151,7 +151,7 @@ def test_poly_t_kmer_gated_and_ok():
     genomes = pack_genomes([SeqRecord([("description", f"g{i}"), ("genome", s)])
                             for i, s in enumerate(seqs)])
     index = build_index(genomes, k)
-    keys, _, _ = sorted_table_host(index)
+    keys, _, _ = sorted_table_host(convert.kmer_index(index))
     assert keys[-1] == (1 << 62) - 1
     jtab = JaxKmerReference(k, _index=index).device_probe_tables("sort")
     codes = np.full((4, 50), 3, dtype=np.uint8)  # every window all-T

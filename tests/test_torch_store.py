@@ -20,6 +20,7 @@ from shotgun_tpu.models import pipeline as jpipe
 from shotgun_tpu.reference import KmerReference as JaxKmerReference
 from shotgun_tpu.utils.synth import synth_genomes, synth_reads, to_fastq
 from shotgun_tpu_torch import aligner, convert
+from shotgun_tpu_torch.io import data_file as tdf
 from shotgun_tpu_torch.models import pipeline as tpipe
 
 torch.set_num_threads(2)
@@ -119,9 +120,9 @@ def test_stream_store_matches_jax(probe, batch, mrq, work, tmp_path, monkeypatch
     jpa = jaligner.PseudoAlignment(JaxKmerReference(K, _index=index))
     jpa.align_stream(open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
                      batch_size=batch, store_reads=True)
-    ref = convert.reference(index)
+    ref = convert.reference(index, CPU)
     pa = aligner.PseudoAlignment(ref, CPU)
-    pa.align_stream(open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
+    pa.align_stream(tdf.open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
                     batch_size=batch, store_reads=True)
     assert ref.probe_method() == probe
     _assert_store_equal(pa, jpa)
@@ -150,8 +151,9 @@ def test_container_store_matches_jax(batch, mrq, work):
     recs = _records(reads)[:150]
     jpa = jaligner.PseudoAlignment(JaxKmerReference(K, _index=index))
     jpa.align_reads_from_container(recs, 2, 0, mrq, 80, 3, batch_size=batch)
-    pa = aligner.PseudoAlignment(convert.reference(index), CPU)
-    pa.align_reads_from_container(recs, 2, 0, mrq, 80, 3, batch_size=batch)
+    pa = aligner.PseudoAlignment(convert.reference(index, CPU), CPU)
+    pa.align_reads_from_container(convert.seq_records(recs), 2, 0, mrq, 80, 3,
+                                  batch_size=batch)
     _assert_store_equal(pa, jpa)
     assert pa._batch_no == jpa._batch_no
 
@@ -173,7 +175,7 @@ def test_duplicate_read_id_matches_jax(where, work):
         at = 45 if where == "same batch" else 50
         first, second = [], recs[:at] + [recs[dup]] + recs[at:70]
     states = []
-    for pa, err in ((aligner.PseudoAlignment(convert.reference(index), CPU),
+    for pa, err in ((aligner.PseudoAlignment(convert.reference(index, CPU), CPU),
                      aligner.AddingExistingRead),
                     (jaligner.PseudoAlignment(JaxKmerReference(K, _index=index)),
                      jaligner.AddingExistingRead)):
@@ -192,12 +194,13 @@ def test_duplicate_read_id_matches_jax(where, work):
 def test_duplicate_read_id_through_the_cli_matches_jax(work, tmp_path, monkeypatch):
     """-t align on a FASTQ that repeats an id: the stream's validation
     rejects the file, and the regex engine raises the parser's
-    DuplicateRecordError in both packages (the read store's
-    AddingExistingRead is reached only across calls); no .aln is
-    written."""
+    DuplicateRecordError in both packages, each its own class of that
+    name (the read store's AddingExistingRead is reached only across
+    calls); no .aln is written."""
     from shotgun_tpu import cli as jax_cli
-    from shotgun_tpu.io.records import DuplicateRecordError
+    from shotgun_tpu.io.records import DuplicateRecordError as JaxDuplicateRecordError
     from shotgun_tpu_torch import cli
+    from shotgun_tpu_torch.io.records import DuplicateRecordError
 
     monkeypatch.setenv("SHOTGUN_TPU_TORCH_DEVICE", "cpu")
     genomes, reads, index = work
@@ -207,8 +210,9 @@ def test_duplicate_read_id_through_the_cli_matches_jax(work, tmp_path, monkeypat
     kdb = str(tmp_path / "db.kdb")
     JaxKmerReference(K, _index=index).save(kdb)
     msgs = []
-    for main, name in ((cli.main, "p.aln"), (jax_cli.main, "j.aln")):
-        with pytest.raises(DuplicateRecordError) as exc:
+    for main, name, err in ((cli.main, "p.aln", DuplicateRecordError),
+                            (jax_cli.main, "j.aln", JaxDuplicateRecordError)):
+        with pytest.raises(err) as exc:
             main(["-t", "align", "-r", kdb, "--reads", str(fq), "-a",
                   str(tmp_path / name), "--batch-size", "64"])
         msgs.append(str(exc.value))
@@ -222,7 +226,7 @@ def test_store_accessors_match_jax(work, tmp_path):
     recs = _records(reads)[:80]
     jpa = jaligner.PseudoAlignment(JaxKmerReference(K, _index=index))
     jpa.align_reads_from_container(recs, batch_size=32)
-    pa = aligner.PseudoAlignment(convert.reference(index), CPU)
+    pa = aligner.PseudoAlignment(convert.reference(index, CPU), CPU)
     pa.align_reads_from_container(recs, batch_size=32)
     for t in aligner.ReadMappingType:
         assert pa.get_reads_by_mapping_type(t) == jpa.get_reads_by_mapping_type(
@@ -239,6 +243,6 @@ def test_dumpalign_routes_store_nothing(work, tmp_path):
     genomes, reads, index = work
     fq = tmp_path / "reads.fq"
     fq.write_text(to_fastq(reads))
-    pa = aligner.PseudoAlignment(convert.reference(index), CPU)
-    pa.align_stream(open_fastq_stream(str(fq), lazy=True), batch_size=64)
+    pa = aligner.PseudoAlignment(convert.reference(index, CPU), CPU)
+    pa.align_stream(tdf.open_fastq_stream(str(fq), lazy=True), batch_size=64)
     assert pa._read_ids == [] and pa._list_flat == [] and pa._n_unique > 0

@@ -11,9 +11,10 @@ import torch
 
 from shotgun_tpu.aligner import PseudoAlignment as JaxPseudoAlignment
 from shotgun_tpu.index.build import build_index
-from shotgun_tpu.io.data_file import FASTAFile, open_fastq_stream
+from shotgun_tpu.io.data_file import open_fastq_stream
 from shotgun_tpu.reference import KmerReference as JaxKmerReference
 from shotgun_tpu_torch.aligner import PseudoAlignment
+from shotgun_tpu_torch.io import data_file as tdf
 from shotgun_tpu_torch.io import native_available
 from shotgun_tpu_torch.reference import KmerReference
 from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted
@@ -74,13 +75,13 @@ def test_write_workload_round_trips_and_reference_from_arrays(tmp_path):
     work = synth.sample_reads(rng, g, 200, 80, 0.01)
     fa, fq = str(tmp_path / "g.fa"), str(tmp_path / "r.fq")
     synth.write_workload(work, fa, fq)
-    from_arrays = KmerReference(21, g).index
-    from_fasta = KmerReference(21, FASTAFile(fa).container).index
+    from_arrays = KmerReference(21, g, device=CPU).index
+    from_fasta = KmerReference(21, tdf.FASTAFile(fa).container, device=CPU).index
     for name in ("kmer_words", "set_id", "set_masks", "post_offsets"):
         np.testing.assert_array_equal(getattr(from_arrays, name),
                                       getattr(from_fasta, name), err_msg=name)
     assert from_arrays.descriptions == from_fasta.descriptions
-    stream = open_fastq_stream(fq, lazy=True)
+    stream = tdf.open_fastq_stream(fq, lazy=True)
     assert stream is not None and stream.max_len == 80
 
 
@@ -95,8 +96,8 @@ def test_strain_workload_with_errors_matches_jax(tmp_path):
     index = build_index(g, 31)
     jpa = JaxPseudoAlignment(JaxKmerReference(31, _index=index))
     jpa.align_stream(open_fastq_stream(fq, lazy=True), 1, 1, batch_size=128)
-    pa = PseudoAlignment(KmerReference(31, g), CPU)
-    pa.align_stream(open_fastq_stream(fq, lazy=True), 1, 1, batch_size=128)
+    pa = PseudoAlignment(KmerReference(31, g, device=CPU), CPU)
+    pa.align_stream(tdf.open_fastq_stream(fq, lazy=True), 1, 1, batch_size=128)
     assert pa.get_summary() == jpa.get_summary()
     stats = pa.get_summary()["Statistics"]
     assert stats["ambiguous_mapped_reads"] > 50 and stats["unique_mapped_reads"] > 50
