@@ -16,8 +16,13 @@ Phases, one line each:
      path's shapes (B = 32768 reads, row stride 160, k = 31, the
      device-assembled 16-slot table of phase 3 with a stash of planted
      entries; and H1 on the packed 32 Mbp genome as one row, as the device
-     build runs it), and H1 at its edge shapes (k, rows, row widths, a row
-     longer than a tile, each mode): exact equality, and the time of each
+     build runs it), H2 also on the strain panel's 4-slot table (the
+     `hash` route's, built here from phase 3's host index) with a batch of
+     its reads, H1 at its edge shapes (k, rows, row widths, a row longer
+     than a tile, each mode) and H2 at its own (4 and 16 slots, stashes of
+     0, 1 and 64 rows, 1 to 257 probes, keys in the first and last slot,
+     in the first and last bucket, twice in a row and in the stash, and
+     each batch with one probe more): exact equality, and the time of each
      beside its plain version, its bytes and its byte bound at 3.35 TB/s;
   5. the main path: `-t dumpalign -g -k 31 --reads` through the port's CLI,
      in process, on 32 random 1 Mbp genomes (about 32M distinct 31-mers:
@@ -75,6 +80,8 @@ the quality sums, in one launch; its entry gives the time of each mode,
 and its launch count is that of every H1 launch on the main path (the
 device build's window encode and the batches, with the MKQ gate, so keys
 and sums together); each timed mode carries its own main-path launches.
+Kernel H2's entry likewise gives the 16-slot table (the main path's) and
+the 4-slot one (launched on the `hash` routes) as two modes.
 Each kernel's launches on every path (the main path and the four
 strain-panel routes, each counted from 0) are listed too.  No single
 PyTorch call computes either kernel's function, so ``library_ms`` is
@@ -128,6 +135,11 @@ MKQ = 30
 EXT_GENOMES = 512
 EXT_ANCESTORS = 64
 EXT_LEN = 20_000
+#: probe counts of H2's edge cases: a warp of one probe, a warp less one,
+#: one warp, a warp and one, a block less one, a block and one
+H2_EDGE_N = (1, 31, 32, 33, 255, 257)
+#: an empty slot's set id in a hash table row
+H2_EMPTY = np.uint32(0xFFFFFFFF)
 PALLAS = "shotgun_tpu/ops/pallas/kernels.py"
 CSRC = "shotgun_tpu_torch/ops/kernels/csrc"
 
@@ -149,26 +161,6 @@ def max_abs_err(got, want) -> int:
         worst = max(worst, int((g.to(torch.int64) - w.to(torch.int64))
                                .abs().max().item()) if g.numel() else 0)
     return worst
-
-
-def plant_stash(real_stash: np.ndarray, hit_keys: np.ndarray,
-                miss_keys: np.ndarray, rng) -> np.ndarray:
-    """The real stash plus planted rows up to 64: keys the queries hit in
-    the table (so stash and table matches merge by min/max/min), repeats
-    of them with other values, keys of windows the table misses (so they
-    resolve through the stash alone) and keys nothing hits."""
-    room = 64 - real_stash.shape[0]
-    q = room // 4
-    hits = rng.choice(np.unique(hit_keys), size=q, replace=False)
-    misses = rng.choice(np.unique(miss_keys), size=q, replace=False)
-    planted = np.concatenate([hits, hits, misses,
-                              rng.integers(0, 1 << 62, size=room - 3 * q)])
-    rows = np.empty((planted.size, 4), dtype=np.uint32)
-    rows[:, 0] = planted & 0xFFFFFFFF
-    rows[:, 1] = planted >> 32
-    rows[:, 2] = rng.integers(0, 1 << 20, size=planted.size)
-    rows[:, 3] = rng.integers(1, 8, size=planted.size)
-    return np.concatenate([real_stash, rows])
 
 
 def timed(fn, plain, out_bytes: int, iters: int, plain_iters: int = 5):
@@ -226,23 +218,136 @@ def h1_edge_checks(rng, device) -> tuple:
     return cases, worst
 
 
-def phase_kernels(tab, codes: np.ndarray, genomes, rng, device) -> list:
+def _random_keys(rng, n: int) -> np.ndarray:
+    keys = np.unique(rng.integers(0, 1 << 62, size=n, dtype=np.int64))
+    return keys[rng.permutation(keys.size)]
+
+
+def _words(keys: np.ndarray) -> tuple:
+    return (keys & 0xFFFFFFFF).astype(np.uint32), (keys >> 32).astype(np.uint32)
+
+
+def _row(key, sid, gc) -> np.ndarray:
+    lo, hi = _words(np.array([key], dtype=np.int64))
+    return np.array([lo[0], hi[0], sid, gc], dtype=np.uint32)
+
+
+def edge_table(rng: np.random.Generator, slots: int, n_base: int = 2000) -> tuple:
+    """A small table of ``slots`` slots a bucket, built by
+    ``build_probe_table`` from random keys, with the edges H2 must get
+    right: (table uint32 [nb, slots, 4], stash uint32 [64, 4], the special
+    keys int64).  The special keys sit in the first and the last slot of a
+    full bucket whose overflow goes to the stash, in buckets 0 and nb - 1,
+    twice in one row, twice in the stash beside a table match, twice in the
+    stash alone, and in the stash alone; the stash is filled to 64 rows
+    with keys that nothing probes."""
+    from shotgun_tpu_torch.index.hashtable import _TARGET_LAMBDA, _next_pow2, build_probe_table
+    from shotgun_tpu_torch.ops.encode import mix32_np
+    from shotgun_tpu_torch.ops.probe import STASH_CAP
+
+    base = _random_keys(rng, n_base)
+    nb = _next_pow2(max(int((n_base + slots + 6) / _TARGET_LAMBDA[slots]), 1))
+    cand = _random_keys(rng, 1 << 21)
+    bucket = mix32_np(*_words(cand)) & np.uint32(nb - 1)
+    inner = bucket[(bucket != 0) & (bucket != nb - 1)][0]
+    full = cand[bucket == inner][: slots + 4]       # a full row + 4 overflow keys
+    ends = np.concatenate([cand[bucket == 0][:1], cand[bucket == nb - 1][:1]])
+    keys = np.unique(np.concatenate([base, full, ends]))
+    keys = keys[rng.permutation(keys.size)]
+    lo, hi = _words(keys)
+    pt = build_probe_table(lo, hi, rng.integers(0, 1 << 20, size=keys.size),
+                           rng.integers(1, 6, size=keys.size), slots_per_bucket=slots)
+    assert pt.n_buckets == nb and pt.stash.shape[0] >= 4
+    table = pt.table.copy()
+
+    def key_at(b: int, s: int) -> int:
+        return int(table[b, s, 0]) | int(table[b, s, 1]) << 32
+
+    specials = [key_at(inner, 0), key_at(inner, slots - 1), *ends]
+    # a key twice in one row: a copy in the row's last free slot, with a
+    # lower set id and a higher genome count, so min/max/min mix the two
+    for b in (0, nb - 1, *np.unique(mix32_np(lo, hi) & np.uint32(nb - 1))):
+        free = np.flatnonzero(table[b, :, 2] == H2_EMPTY)
+        if free.size and free[0] > 0:
+            break
+    assert free.size and free[0] > 0, "no row with a key and a free slot"
+    dup = key_at(b, 0)
+    table[b, free[-1]] = _row(dup, table[b, 0, 2] // 2, table[b, 0, 3] + 3)
+    over = int(pt.stash[0, 0]) | int(pt.stash[0, 1]) << 32
+    alone = int(_random_keys(rng, 1)[0])
+    tsid, tgc = table[0, 0, 2], table[0, 0, 3]
+    rows = [_row(ends[0], tsid + 1, tgc + 2), _row(ends[0], tsid // 3, 1),
+            _row(over, 7, 9), _row(alone, 5, 2)]
+    specials += [dup, over, alone]
+    filler = _random_keys(rng, STASH_CAP)
+    rows += [_row(k, i, 1) for i, k in enumerate(filler)]
+    stash = np.concatenate([pt.stash, np.stack(rows)])[:STASH_CAP]
+    return table, stash, np.array(specials, dtype=np.int64)
+
+
+def edge_queries(rng: np.random.Generator, table: np.ndarray, specials: np.ndarray,
+                 n: int) -> np.ndarray:
+    """``n`` int64 query keys: the special keys first, then keys of the
+    table and keys it lacks."""
+    held = table[table[..., 2] != H2_EMPTY]
+    present = held[:, 0].astype(np.int64) | held[:, 1].astype(np.int64) << 32
+    rest = np.where(rng.random(n) < 0.6, rng.choice(present, size=n),
+                    rng.integers(0, 1 << 62, size=n))
+    return np.concatenate([specials, rest])[:n]
+
+
+def h2_edge_checks(rng, device) -> tuple:
+    """H2 against its plain version at the edge shapes: 4 and 16 slots;
+    stashes of 0, 1 and 64 rows; n in H2_EDGE_N probes (a warp of one
+    probe, warps cut short or full, a block and a warp more or less).  The
+    tables (``edge_table``) hold keys in the first and the
+    last slot of a full bucket, in buckets 0 and n_buckets - 1, twice in
+    one row and twice in the stash; the queries start with those keys.
+    (cases, max |err|)."""
+    import torch
+
+    from shotgun_tpu_torch.ops.probe import hash_probe, hash_probe_plain
+
+    cases, worst = 0, 0
+    for slots in (4, 16):
+        table, stash, specials = edge_table(rng, slots)
+        table_d = torch.from_numpy(table.view(np.int32)).to(device)
+        for stash_n in (0, 1, 64):
+            stash_d = torch.from_numpy(stash[:stash_n].view(np.int32)).to(device)
+            for n in H2_EDGE_N:
+                keys = torch.from_numpy(edge_queries(rng, table, specials, n)).to(device)
+                worst = max(worst, max_abs_err(hash_probe(table_d, stash_d, keys),
+                                               hash_probe_plain(table_d, stash_d, keys)))
+                cases += 1
+    torch.cuda.synchronize()
+    return cases, worst
+
+
+def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray,
+                  genomes, rng, device) -> list:
     """Phase 4: each kernel against its plain version at main-path shapes
-    (and H1 at its edge shapes), timed beside its byte bound."""
+    (and at its edge shapes), timed beside its byte bound; H2 also on the
+    strain panel's 4-slot table, built here from its host index."""
     import torch
 
     from shotgun_tpu_torch.index.device_build import _host_prep
+    from shotgun_tpu_torch.index.hashtable import build_probe_table
     from shotgun_tpu_torch.ops.encode import (
         encode_window,
         encode_window_plain,
-        mix32,
         pack_codes_2bit,
-        split_key,
     )
-    from shotgun_tpu_torch.ops.probe import hash_probe, hash_probe_plain
+    from shotgun_tpu_torch.ops.probe import (
+        STASH_POS_BASE,
+        hash_probe,
+        hash_probe_plain,
+        hash_table_to_device,
+    )
     from shotgun_tpu_torch.tools.bench_encode import bound_ms, h1_bytes
+    from shotgun_tpu_torch.tools.bench_probe import probe_case
 
     n_edge, err_edge = h1_edge_checks(rng, device)
+    n_h2_edge, err_h2_edge = h2_edge_checks(rng, device)
     b, length = codes.shape
     padded = np.zeros((b, LPAD), dtype=np.uint8)
     padded[:, :length] = codes
@@ -264,32 +369,52 @@ def phase_kernels(tab, codes: np.ndarray, genomes, rng, device) -> list:
     err_qual = max_abs_err(kq, kq_p)
     del row_keys, row_keys_p, kq, kq_p
 
-    # windows past the read end reach into the zero padding: the table
-    # misses them, so planting their keys gives stash-only hits
-    keys_np = keys.cpu().numpy()
-    stash_np = plant_stash(tab.stash.cpu().numpy().view(np.uint32),
-                           keys_np[:, :length - K + 1],
-                           keys_np[:, length - K + 1:], rng)
-    stash = torch.from_numpy(stash_np.view(np.int32)).to(device)
-    probe = hash_probe(tab.table, stash, keys)
-    probe_p = hash_probe_plain(tab.table, stash, keys)
-    torch.cuda.synchronize()
-    err_probe = max_abs_err(probe, probe_p)
-    n_stash_hits = int((probe[2] >= 0x7FFF0000).sum().item())
-    if max(err_edge, err_enc, err_qual, err_probe) != 0:
+    if max(err_edge, err_enc, err_qual, err_h2_edge) != 0:
         raise AssertionError(f"kernel != plain: encode edges {err_edge}, encode "
-                             f"{err_enc}, encode+qual {err_qual}, probe {err_probe}")
-    if n_stash_hits == 0:
-        raise AssertionError("no window resolved through the planted stash")
-    del probe_p
+                             f"{err_enc}, encode+qual {err_qual}, probe edges "
+                             f"{err_h2_edge}")
 
-    # H2's bytes: the keys, one 256-byte row of each distinct bucket this
-    # batch reads, the stash, and three int32 outputs a window
-    lo, hi = split_key(keys)
-    buckets = int(torch.unique(mix32(lo, hi) & (tab.table.shape[0] - 1)).numel())
-    row_bytes = tab.table.shape[1] * tab.table.shape[2] * 4
-    n = keys.numel()
-    probe_bytes = n * 8 + buckets * row_bytes + stash.numel() * 4 + n * 12
+    # H2: the device-assembled 16-slot table of phase 3 and the strain
+    # panel's 4-slot table, each probed with one batch of its reads (the
+    # batch, and the batch plus one key: a last warp of one probe)
+    t0 = time.perf_counter()
+    pt = build_probe_table(strain_index.kmer_lo, strain_index.kmer_hi,
+                           strain_index.set_id, strain_index.genome_counts(),
+                           slots_per_bucket=4)
+    tab4 = hash_table_to_device(pt.table, pt.stash, device)
+    torch.cuda.synchronize()
+    table4_s = time.perf_counter() - t0
+    del pt
+    h2_modes = []
+    for case in (probe_case("16-slot", tab.table, tab.stash, codes, rng),
+                 probe_case("4-slot", tab4.table, tab4.stash, strain_codes, rng)):
+        args = (case["table"], case["stash"])
+        flat = case["keys"].reshape(-1)
+        plus_one = torch.cat([flat, flat[-1:]])
+        probe = hash_probe(*args, case["keys"])
+        err = max(max_abs_err(probe, hash_probe_plain(*args, case["keys"])),
+                  max_abs_err(hash_probe(*args, plus_one),
+                              hash_probe_plain(*args, plus_one)))
+        torch.cuda.synchronize()
+        stash_hits = int((probe[2] >= STASH_POS_BASE).sum().item())
+        if err != 0:
+            raise AssertionError(f"kernel != plain: probe {case['name']} {err}")
+        if stash_hits == 0:
+            raise AssertionError(f"{case['name']}: no window resolved through "
+                                 "the planted stash")
+        del probe, plus_one
+        n = case["keys"].numel()
+        ms, plain_ms = timed(lambda: hash_probe(*args, case["keys"]),
+                             lambda: hash_probe_plain(*args, case["keys"]), n * 12, 100)
+        h2_modes.append({
+            "shape": f"{n} probes into {tuple(case['table'].shape)}",
+            "mode": case["name"], "bytes": case["bytes"],
+            "bound_ms": bound_ms(case["bytes"]),
+            "bound_share": bound_ms(case["bytes"]) / ms, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "max_abs_err": err,
+            "distinct_buckets": case["buckets"], "stash_rows": case["stash"].shape[0],
+            "stash_hits": stash_hits})
+    del tab4, case, args
     nwin = LPAD - K + 1
     h1_modes = [
         # (shape, mode, bytes, kernel, plain, output bytes)
@@ -310,9 +435,6 @@ def phase_kernels(tab, codes: np.ndarray, genomes, rng, device) -> list:
         modes.append({"shape": shape, "mode": mode, "bytes": nbytes,
                       "bound_ms": bound_ms(nbytes), "bound_share": bound_ms(nbytes) / ms,
                       "ms": ms, "plain_ms": plain_ms, "library_ms": None})
-    probe_ms, probe_plain_ms = timed(lambda: hash_probe(tab.table, stash, keys),
-                                     lambda: hash_probe_plain(tab.table, stash, keys),
-                                     n * 12, 100)
     no_library = ("none: no single PyTorch call computes this function (%s); "
                   "the plain version takes %s")
     main_mode = modes[0]
@@ -330,29 +452,35 @@ def phase_kernels(tab, codes: np.ndarray, genomes, rng, device) -> list:
          "edge_cases_checked": n_edge, "modes": modes},
         {"name": "hash_probe", "route": "cuda",
          "source": f"{CSRC}/hash_probe.cu", "replaces": f"{PALLAS}:162",
-         "max_abs_err": err_probe, "ms": probe_ms, "plain_ms": probe_plain_ms,
-         "bound_ms": bound_ms(probe_bytes), "bound_by": "bytes",
-         "bound_share": bound_ms(probe_bytes) / probe_ms, "bytes": probe_bytes,
-         "distinct_buckets": buckets, "library_ms": None,
+         "max_abs_err": max(err_h2_edge, *(m["max_abs_err"] for m in h2_modes)),
+         **{key: h2_modes[0][key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_share", "bytes", "distinct_buckets")},
+         "bound_by": "bytes", "library_ms": None,
          "library_reason": no_library % (
              "bucket hash, bucket-row gather, slot and stash compare",
-             "a gather and min/max reductions")},
+             "a gather and min/max reductions"),
+         "edge_cases_checked": n_h2_edge, "modes": h2_modes},
     ]
     say("phase 4 kernels == plain (integer outputs, tolerance 0): H1 at %d edge "
         "cases (k 1/2/15/31; 1, 7, 32768 rows of 8/40/41 packed bytes; a row one "
         "tile long; keys, sums, both) and at B=%d L=%d k=%d, and on the genome as "
-        "one row of %d bases; H2 on the device-assembled table %s (stash %d rows, "
-        "%d stash hits, %d distinct buckets read). Times (launches queued behind "
-        "a sleep kernel, outputs rotated past the L2): %s; H2 %.4f ms vs plain "
-        "%.4f ms, %d B, bound %.4f ms, %.1f%% of it" % (
-            n_edge, b, LPAD, K, row_d.shape[1] * 4, tuple(tab.table.shape),
-            stash.shape[0], n_stash_hits, buckets,
-            "; ".join("H1 %s %s %.4f ms vs plain %.4f ms, %d B, bound %.4f ms, "
-                      "%.1f%% of it" % (m["mode"], m["shape"], m["ms"], m["plain_ms"],
-                                        m["bytes"], m["bound_ms"], 100 * m["bound_share"])
-                      for m in modes),
-            probe_ms, probe_plain_ms, probe_bytes, bound_ms(probe_bytes),
-            100 * bound_ms(probe_bytes) / probe_ms))
+        "one row of %d bases; H2 at %d edge cases (4 and 16 slots; stash 0/1/64 "
+        "rows; n %s) and on one batch of B=%d reads (and one window more) on the "
+        "device-assembled 16-slot table of phase 3 and on the strain panel's "
+        "4-slot table (host "
+        "build %.3f s). Times (launches queued behind a sleep kernel, outputs "
+        "rotated past the L2): %s" % (
+            n_edge, b, LPAD, K, row_d.shape[1] * 4, n_h2_edge,
+            "/".join(map(str, H2_EDGE_N)), b, table4_s,
+            "; ".join("%s %s %s %.4f ms vs plain %.4f ms, %d B, bound %.4f ms, "
+                      "%.1f%% of it%s" % (
+                          kernel, m["mode"], m["shape"], m["ms"], m["plain_ms"],
+                          m["bytes"], m["bound_ms"], 100 * m["bound_share"],
+                          ", %d distinct buckets read, stash %d rows, %d stash hits" % (
+                              m["distinct_buckets"], m["stash_rows"], m["stash_hits"])
+                          if kernel == "H2" else "")
+                      for kernel, ms_list in (("H1", modes), ("H2", h2_modes))
+                      for m in ms_list)))
     return results
 
 
@@ -397,6 +525,7 @@ def counted_run(argv, env=None, out_path=None, stream=True):
     encode_window.launches = 0
     encode_window.launches_by_mode.clear()
     hash_probe.launches = 0
+    hash_probe.launches_by_mode.clear()
     t0 = time.perf_counter()
     out = run_cli(argv + ["--profile"], env, out_path)
     torch.cuda.synchronize()
@@ -434,7 +563,7 @@ def check_build(dev: dict, host, what: str) -> None:
 def phase_db_build(panels, device):
     """Phase 3: the device build against the host build on each panel,
     both timed, then the 16-slot table of the first panel assembled on
-    the device; returns that table."""
+    the device; returns that table and the last panel's host index."""
     import torch
 
     from shotgun_tpu_torch.index.device_build import device_build_tables, device_hash_table
@@ -468,24 +597,26 @@ def phase_db_build(panels, device):
             part += (f", 16-slot table {tuple(ht[0].shape)} assembled on the "
                      f"device {time.perf_counter() - t0:.3f} s")
         parts.append(part)
-        del host, built
+        del built
     say("phase 3 db build device == host (keys, genome counts, membership): "
         + "; ".join(parts))
-    return table
+    return table, host
 
 
 def phase_main_path(fa: str, fq: str, gi: np.ndarray) -> tuple:
     """Phase 5: dumpalign through the CLI, held against the known truth;
-    returns each kernel's launch count in that run, and H1's by mode."""
+    returns each kernel's launch count in that run, and by mode."""
     from shotgun_tpu_torch.io import native_available
     from shotgun_tpu_torch.ops.encode import encode_window
+    from shotgun_tpu_torch.ops.probe import hash_probe
 
     if not native_available():
         raise AssertionError("the native FASTQ library did not build")
     out, stages, launches, wall, peak = counted_run(
         ["-t", "dumpalign", "-g", fa, "-k", str(K), "--reads", fq,
          "--min-kmer-quality", str(MKQ)])
-    by_mode = dict(encode_window.launches_by_mode)
+    by_mode = {"encode_window": dict(encode_window.launches_by_mode),
+               "hash_probe": dict(hash_probe.launches_by_mode)}
     if "db_build_device" not in stages or "db_build" in stages:
         raise AssertionError(f"the database was not built on the device: {stages}")
     summary = json.loads(out)
@@ -511,7 +642,7 @@ def phase_main_path(fa: str, fq: str, gi: np.ndarray) -> tuple:
         "hash16: wall %.3f s (fasta %.3f s, db build on the device %.3f s, "
         "hash table assembly %.3f s, stream align %.3f s), %.0f reads/s "
         "aligned, %.0f reads/s wall, peak device memory %d B, launches %s "
-        "(H1 by mode %s); summary == truth" % (
+        "(by mode %s); summary == truth" % (
             n, N_GENOMES, GENOME_LEN, K, wall, stages.get("fasta_parse", 0.0),
             stages["db_build_device"], stages.get("table_build", 0.0),
             align_s, n / align_s, n / wall, peak, launches, by_mode))
@@ -827,10 +958,11 @@ def main() -> int:
     strain_work = sample_reads(rng, strains, N_READS, READ_LEN, ERROR_RATE)
 
     # 3. database build, device against host; 4. kernels against plain
-    tab = phase_db_build([("32 Mbp main-path genomes", genomes),
-                          ("strain panel", strains)], device)
-    kernels = phase_kernels(tab, work.codes[:BATCH], genomes, rng, device)
-    del tab
+    tab, strain_index = phase_db_build([("32 Mbp main-path genomes", genomes),
+                                        ("strain panel", strains)], device)
+    kernels = phase_kernels(tab, strain_index, work.codes[:BATCH],
+                            strain_work.codes[:BATCH], genomes, rng, device)
+    del tab, strain_index
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -839,7 +971,7 @@ def main() -> int:
         write_workload(work, fa, fq)
         gi = work.genome_of
         del genomes, work
-        launches, h1_by_mode = phase_main_path(fa, fq, gi)
+        launches, by_mode = phase_main_path(fa, fq, gi)
         torch.cuda.empty_cache()
 
         # 6. strain panel on four routes
@@ -863,8 +995,8 @@ def main() -> int:
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]
         kr["launches_by_path"] = {p: n[kr["name"]] for p, n in by_path.items()}
-        for m in kr.get("modes", ()):
-            m["launches_main_path"] = h1_by_mode.get(m["mode"], 0)
+        for m in kr["modes"]:
+            m["launches_main_path"] = by_mode[kr["name"]].get(m["mode"], 0)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -7,7 +7,9 @@ row and compares the small overflow stash; the result contract is
 genome_count, slot_pos)``, misses give ``set_id == -1``,
 ``genome_count == 0``, ``slot_pos == -1``; a stash hit gets
 ``slot_pos = 0x7FFF0000 + i``.  ``slot_pos`` is unique per distinct
-k-mer, so the within-read dedupe compares one int32.
+k-mer, so the within-read dedupe compares one int32; that holds only
+while every flat slot position ``bucket * slots + s`` lies below the
+stash's, so ``hash_probe`` refuses a table of more than 0x7FFF0000 slots.
 
 Kernel H2 ``hash_probe`` (``ops/kernels/csrc/hash_probe.cu``) does the
 bucket hash, the row read, the slot compare and the stash merge in one
@@ -22,6 +24,7 @@ widens them to int64 with ``& 0xFFFFFFFF``.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -103,6 +106,9 @@ def _check_table(table: torch.Tensor, stash: torch.Tensor,
     n_buckets = table.shape[0]
     if n_buckets < 1 or n_buckets & (n_buckets - 1):
         raise ValueError(f"n_buckets must be a power of two, got {n_buckets}")
+    if n_buckets * table.shape[1] > STASH_POS_BASE:
+        raise ValueError(f"{n_buckets} x {table.shape[1]} slots: slot positions "
+                         f"would reach the stash's from {STASH_POS_BASE:#x}")
     if stash.dtype != torch.int32 or stash.dim() != 2 or stash.shape[1] != 4:
         raise ValueError(f"stash must be int32 [n, 4], got "
                          f"{stash.dtype} {tuple(stash.shape)}")
@@ -120,8 +126,9 @@ def hash_probe(table: torch.Tensor, stash: torch.Tensor, keys: torch.Tensor
     int32 of the same shape.
 
     A CUDA tensor launches the kernel on the current stream (counted in
-    ``hash_probe.launches``); the kernel serves the 4- and 16-slot layouts
-    the references build.  A CPU tensor takes ``hash_probe_plain``, which
+    ``hash_probe.launches``, and in ``hash_probe.launches_by_mode`` under
+    "16-slot" or "4-slot"); the kernel serves the two layouts the
+    references build.  A CPU tensor takes ``hash_probe_plain``, which
     serves any slot count."""
     _check_table(table, stash, keys)
     device = keys.device
@@ -146,10 +153,12 @@ def hash_probe(table: torch.Tensor, stash: torch.Tensor, keys: torch.Tensor
         torch.cuda.current_stream(device).cuda_stream)
     check_status(lib, status, "hash_probe")
     hash_probe.launches += 1
+    hash_probe.launches_by_mode[f"{table.shape[1]}-slot"] += 1
     return tuple(outs)
 
 
 hash_probe.launches = 0
+hash_probe.launches_by_mode = Counter()
 
 
 def probe_kmers(table: torch.Tensor, stash: torch.Tensor, keys: torch.Tensor

@@ -21,6 +21,8 @@ from shotgun_tpu_torch.ops.probe import (
     probe_kmers,
 )
 
+import chip_smoke
+
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
 EMPTY = np.uint32(0xFFFFFFFF)
@@ -187,3 +189,156 @@ def test_hash_probe_rejects_bad_input(bad):
         keys = keys.to(torch.int32)
     with pytest.raises(ValueError):
         hash_probe(table, stash, keys)
+
+
+def test_hash_probe_refuses_slot_positions_past_the_stash_range():
+    """Flat slot positions bucket * slots + s must stay below the stash's
+    0x7FFF0000: a larger table raises on the CPU path as on the CUDA one
+    (expanded tensors: no memory behind them)."""
+    keys = torch.zeros((2, 3), dtype=torch.int64)
+    stash = torch.zeros((0, 4), dtype=torch.int32)
+    for n_buckets, slots in ((1 << 27, 16), (1 << 29, 4), (1 << 16, 32768)):
+        table = torch.zeros((1, 1, 4), dtype=torch.int32).expand(n_buckets, slots, 4)
+        with pytest.raises(ValueError, match="stash"):
+            hash_probe(table, stash, keys)
+    # 0x7FFF0000 slots exactly: the last position is 0x7FFEFFFF, still below
+    # (every slot EMPTY; the plain probe gathers rows of the stride-0 view)
+    empty_row = torch.tensor([[[0, 0, -1, 0]]], dtype=torch.int32)
+    table = empty_row.expand(1 << 16, 32767, 4)
+    sid, gc, pos = hash_probe(table, stash, keys)
+    assert bool((sid == -1).all()) and bool((pos == -1).all())
+
+
+# --- a numpy model of kernel H2's lane mapping (ops/kernels/csrc/hash_probe.cu):
+# a warp takes 32 consecutive probes; in iteration j the group of `slots`
+# lanes starting at lane g reads the row of probe g + j (its key and bucket
+# by shuffle from lane g + j), lane l of the group slot l; a ballot gives
+# each group its matching slots, and lane g + j keeps the lowest as the
+# position and takes set id and genome count from each matching lane, in
+# rounds while any group has a match left; each lane then compares its own
+# key against the stash and lane i stores probe i.  Its index math is the
+# kernel's, line for line.
+
+_THREADS = 256
+
+
+def h2_model(table: np.ndarray, stash: np.ndarray, keys: np.ndarray):
+    """(sid, gc, pos) int32 of kernel H2 on uint32 ``table`` [nb, slots, 4],
+    uint32 ``stash`` [s, 4] and int64 ``keys`` [n], as its warps compute
+    them: warp w of block b takes the 32 probes from b * 256 + 32 * w."""
+    nb, slots = table.shape[:2]
+    n = keys.size
+    blocks = -(-n // _THREADS)
+    bases = (np.arange(blocks)[:, None] * _THREADS
+             + 32 * np.arange(_THREADS // 32)).reshape(-1)
+    bases = bases[bases < n]                                # whole warps past n leave
+    lane = np.arange(32)
+    live = np.minimum(n - bases, 32)[:, None]              # [C, 1]
+    valid = lane[None, :] < live                            # [C, 32]
+    t = bases[:, None] + lane[None, :]
+    key = np.where(valid, keys[np.minimum(t, n - 1)], 0).astype(np.uint64)
+    lo = (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (key >> np.uint64(32)).astype(np.uint32)
+    bucket = jenc.mix32(lo, hi, np) & np.uint32(nb - 1)
+    group = lane & ~(slots - 1)
+    slot = lane & (slots - 1)
+    sid = np.full(lo.shape, EMPTY, np.uint32)
+    gc = np.zeros(lo.shape, np.uint32)
+    pos = np.full(lo.shape, EMPTY, np.uint32)
+    for j in range(slots):                                  # the depth only reorders loads
+        src = group | j                                     # shuffle source lane
+        b = bucket[:, src]
+        e = table[b, slot[None, :]]                         # [C, 32, 4]
+        e = np.where((src[None, :] < live)[..., None], e,
+                     np.array([0, 0, EMPTY, 0], np.uint32))
+        m = (e[..., 0] == lo[:, src]) & (e[..., 1] == hi[:, src]) & (e[..., 2] != EMPTY)
+        # __ballot_sync, shifted to each group's bits
+        ball = (m.astype(np.uint64) << lane.astype(np.uint64)).sum(axis=1)
+        bits = ((ball[:, None] >> group.astype(np.uint64))
+                & np.uint64((1 << slots) - 1)).astype(np.uint32)
+        owner = (slot == j)[None, :]                        # lane g + j owns probe g + j
+
+        def ffs(x):                                          # __ffs(x) - 1 where x != 0
+            low = np.zeros(x.shape, np.int64)
+            for s in reversed(range(slots)):
+                low = np.where((x >> np.uint32(s)) & np.uint32(1), s, low)
+            return low
+
+        first = owner & (bits != 0)
+        pos = np.where(first, bucket * np.uint32(slots) + ffs(bits).astype(np.uint32), pos)
+        while (bits != 0).any():                            # __any_sync rounds
+            src_lane = group[None, :] | ffs(bits)           # shuffle source lane
+            z = np.take_along_axis(e[..., 2], src_lane, axis=1)
+            w = np.take_along_axis(e[..., 3], src_lane, axis=1)
+            take = owner & (bits != 0)
+            sid = np.where(take, np.minimum(sid, z), sid)
+            gc = np.where(take, np.maximum(gc, w), gc)
+            bits = bits & (bits - np.uint32(1))
+    # the stash: four key_lo words at a time, then the full compare of
+    # those entries (words past the stash are whatever shared memory holds)
+    s_lo = np.concatenate([stash[:, 0], lo.reshape(-1)[:3]])
+    for i in range(0, stash.shape[0], 4):
+        quick = (s_lo[i: i + 4][None, None, :] == lo[..., None]).any(axis=2)
+        for q in range(i, min(i + 4, stash.shape[0])):
+            e = stash[q]
+            m = quick & (e[0] == lo) & (e[1] == hi)
+            sid = np.where(m, np.minimum(sid, e[2]), sid)
+            gc = np.where(m, np.maximum(gc, e[3]), gc)
+            pos = np.where(m, np.minimum(pos, np.uint32(0x7FFF0000 + q)), pos)
+    out = [np.full(n, 12345, np.int32) for _ in range(3)]   # unwritten shows
+    hit = sid != EMPTY
+    for o, v in zip(out, (np.where(hit, sid, -1), gc, np.where(hit, pos, -1))):
+        o[t[valid]] = v.astype(np.int64)[valid].astype(np.int32)
+    return out
+
+
+@pytest.mark.parametrize("slots", [4, 16])
+@pytest.mark.parametrize("stash_n", [0, 1, 64])
+def test_h2_model_equals_plain_and_jax(slots, stash_n):
+    """The kernel's lane mapping (numpy model) on the edge tables of
+    ``chip_smoke.py`` phase 4 (keys in the first and last slot of a full
+    bucket, in buckets 0 and n_buckets - 1, twice in a row and twice in
+    the stash), at the edge probe counts, against ``hash_probe_plain``
+    and the JAX ``probe_kmers``."""
+    rng = np.random.default_rng(100 * slots + stash_n)
+    table, stash, specials = chip_smoke.edge_table(rng, slots)
+    stash = stash[:stash_n]
+    tab = HashTableDev(torch.from_numpy(table.view(np.int32)),
+                       torch.from_numpy(stash.view(np.int32)))
+    n_all = (1, 31, 32, 33, 255, 257, 1200)
+    queries = [chip_smoke.edge_queries(rng, table, specials, n) for n in n_all]
+    for q in queries:
+        got = h2_model(table, stash, q)
+        want = [x.numpy() for x in hash_probe_plain(*tab, torch.from_numpy(q))]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    # one JAX compile a case: every query set as one row
+    flat = np.concatenate(queries)
+    _, sid, gc, pos = _jax_probe(table, stash, flat[None, :])
+    for g, w in zip(h2_model(table, stash, flat), (sid, gc, pos)):
+        np.testing.assert_array_equal(g, w[0])
+
+
+def test_h2_edge_table_holds_each_edge():
+    """The edge tables hold what their doc says, so the chip's edge cases
+    and the model tests really reach those slots, buckets and merges."""
+    for slots in (4, 16):
+        rng = np.random.default_rng(slots)
+        table, stash, specials = chip_smoke.edge_table(rng, slots)
+        nb = table.shape[0]
+        assert stash.shape == (64, 4)
+        sid, gc, pos = [x.numpy() for x in hash_probe_plain(
+            torch.from_numpy(table.view(np.int32)), torch.from_numpy(stash.view(np.int32)),
+            torch.from_numpy(specials))]
+        first, last, b0, blast, dup, over, alone = range(7)
+        assert pos[first] % slots == 0 and pos[last] % slots == slots - 1
+        assert pos[first] // slots == pos[last] // slots      # one full bucket
+        assert pos[b0] // slots == 0 and pos[blast] // slots == nb - 1
+        assert pos[over] == 0x7FFF0000 and pos[alone] >= 0x7FFF0000
+        held = table[..., 0].astype(np.int64) | table[..., 1].astype(np.int64) << 32
+        held = np.where(table[..., 2] != EMPTY, held, -1)
+        assert ((held == specials[dup]).sum(axis=1) == 2).any()  # twice in one row
+        skeys = stash[:, 0].astype(np.int64) | stash[:, 1].astype(np.int64) << 32
+        for k in (b0, over):  # twice in the stash, beside a table match or alone
+            assert (skeys == specials[k]).sum() == 2
+        assert (sid >= 0).all()

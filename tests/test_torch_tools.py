@@ -1,6 +1,7 @@
 """The port's workload generator (shotgun_tpu_torch.utils.synth), its
 reference built straight from genome arrays, and the profiling tools
-(shotgun_tpu_torch.tools.profile_align, .bench_sortjoin) on the CPU."""
+(shotgun_tpu_torch.tools.profile_align, .bench_sortjoin, .bench_probe)
+on the CPU."""
 
 import json
 import os
@@ -17,8 +18,10 @@ from shotgun_tpu_torch.aligner import PseudoAlignment
 from shotgun_tpu_torch.io import data_file as tdf
 from shotgun_tpu_torch.io import native_available
 from shotgun_tpu_torch.reference import KmerReference
+from shotgun_tpu_torch.ops.encode import mix32_np
+from shotgun_tpu_torch.ops.probe import hash_probe_plain
 from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted
-from shotgun_tpu_torch.tools import bench_sortjoin, profile_align
+from shotgun_tpu_torch.tools import bench_probe, bench_sortjoin, profile_align
 from shotgun_tpu_torch.utils import synth
 
 torch.set_num_threads(2)
@@ -187,3 +190,73 @@ def test_bench_sortjoin_runs_on_cpu_and_reports_no_device_metric(capsys):
         assert set(run["ms"]) == {"join", "join_cummax", "sort_stable",
                                   "sort_unstable", "cummax", "cumsum",
                                   "scatter_restore", "hash16"}
+
+
+def test_bench_probe_cases_are_the_two_hash_layouts():
+    """bench_probe's shapes at a small size: the device-assembled 16-slot
+    table and the host-built 4-slot one, one batch of window keys each,
+    the stash planted to 64 rows, and the byte count of the bound."""
+    rng = np.random.default_rng(11)
+    cases = bench_probe.make_cases(rng, CPU, genomes=4, genome_len=20_000, strains=2,
+                                   strain_len=5_000, batch=64)
+    assert [c["name"] for c in cases] == ["16-slot", "4-slot"]
+    for case, slots in zip(cases, (16, 4)):
+        table, stash, keys = case["table"], case["stash"], case["keys"]
+        assert table.shape[1:] == (slots, 4) and stash.shape == (64, 4)
+        assert keys.shape == (64, bench_probe.LPAD - bench_probe.K + 1)
+        k = keys.numpy().reshape(-1)
+        lo, hi = (k & 0xFFFFFFFF).astype(np.uint32), (k >> 32).astype(np.uint32)
+        buckets = np.unique(mix32_np(lo, hi) & np.uint32(table.shape[0] - 1)).size
+        assert case["buckets"] == buckets
+        assert case["bytes"] == k.size * 20 + buckets * slots * 16 + 64 * 16
+        sid, gc, pos = hash_probe_plain(table, stash, keys)
+        stash_hits = pos >= 0x7FFF0000
+        assert 0.5 < float((sid >= 0).float().mean()) < 1
+        assert bool(stash_hits.any()) and bool(((sid >= 0) & ~stash_hits).any())
+
+
+def test_bench_probe_exits_1_without_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        bench_probe.main(["--iters", "1"])
+    assert exc.value.code == 1
+    assert "torch.cuda.is_available() is false" in capsys.readouterr().err
+
+
+def test_kernel_build_compiles_every_source_at_once_then_links(tmp_path, monkeypatch):
+    """``build`` starts one nvcc a source for sm_90a with the ptxas report,
+    links the objects once into the library, keeps the report as its log,
+    and reuses a library newer than every source; no nvcc runs here: the
+    compiler is a stand-in that records its arguments."""
+    from shotgun_tpu_torch.ops.kernels import build as kbuild
+
+    seen = []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            seen.append(cmd)
+            out = cmd[cmd.index("-o") + 1]
+            with open(out, "w") as fh:
+                fh.write("x")
+
+        def communicate(self):
+            return "", "ptxas info"
+
+    monkeypatch.setattr(kbuild, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(kbuild.subprocess, "Popen", FakeProc)
+    monkeypatch.setattr(kbuild.subprocess, "run", FakeProc)
+    res = kbuild.build(force=True, build_dir=str(tmp_path / "k"))
+    compiles, link = seen[:-1], seen[-1]
+    srcs = kbuild.sources()
+    assert len(srcs) >= 3 and [cmd[-1] for cmd in compiles] == srcs
+    for cmd in compiles:
+        assert "-c" in cmd and "-v" in cmd and kbuild.ARCH_FLAGS[1] in cmd
+    objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert "-shared" in link and link[-len(objs):] == objs
+    assert res.path == str(tmp_path / "k" / kbuild.LIB_NAME) and os.path.exists(res.path)
+    assert res.log == "ptxas info" * len(srcs)
+    assert sorted(os.listdir(tmp_path / "k")) == [kbuild.LIB_NAME]  # objects removed
+    again = kbuild.build(build_dir=str(tmp_path / "k"))
+    assert len(seen) == len(srcs) + 1 and again == (res.path, 0.0, "")
