@@ -22,8 +22,11 @@ Phases, one line each:
      than a tile, each mode) and H2 at its own (4 and 16 slots, stashes of
      0, 1 and 64 rows, 1 to 257 probes, keys in the first and last slot,
      in the first and last bucket, twice in a row and in the stash, and
-     each batch with one probe more): exact equality, and the time of each
-     beside its plain version, its bytes and its byte bound at 3.35 TB/s;
+     each batch with one probe more), and H1's multi-word composition
+     (``encode_words``: H1 at k = 31 and at k mod 31, sliced and summed)
+     at k in WORD_KS on the main path's batch and at ragged shapes: exact
+     equality, and the time of each (the composition at k = 75) beside its
+     plain version, its bytes and its byte bound at 3.35 TB/s;
   5. the main path: `-t dumpalign -g -k 31 --reads` through the port's CLI,
      in process, on 32 random 1 Mbp genomes (about 32M distinct 31-mers:
      the database builds on the device, and the auto probe picks the
@@ -47,7 +50,9 @@ Phases, one line each:
      card, byte for byte, on the auto route, on the sort join, on the
      4-slot hash table and with the device build forced; on each route
      also the 3 dumpref cases and the corpus through reference -> align ->
-     dumpalign -a, which must print the plain case;
+     dumpalign -a, which must print the plain case; then the 4 runlog
+     dumpalign cases at k = 75 and 150 (multi-word keys: the word sort
+     join, H1 launched and H2 not);
   8. the rest of the CLI at size, in the directory of phases 5 and 6:
      a. the strain panel: -t reference (host build, .kdb saved);
         dumpref -r of that file and dumpref -g, each to a file, equal
@@ -67,7 +72,24 @@ Phases, one line each:
      c. EXTSIM at G = 512 (64 ancestors x 8 copies of 20 kbp at 1%
         mutation): the overlap matrix on the card equal to the JAX
         package's host product, both timed, and dumpref --filter-similar
-        on the panel through the CLI, which must drop genomes.
+        on the panel through the CLI, which must drop genomes;
+  9. multi-word keys at size: `-t dumpalign -g -k 75 --reads` on the strain
+     panel of phase 6 (host build, word sort join): once on phase 6's reads
+     (all 'I'), and once on the same reads with random qualities (from
+     --seed, raw bytes uniform in WORD_QUAL) and --min-kmer-quality
+     WORD_MKQ, which filters about half the windows: H1 launched and H2
+     not, the statistics sum to the reads with unique and ambiguous reads
+     both present, the gated run's filtered_quality_kmers equal to the
+     windows whose quality sum numpy finds below the gate, and its mapped
+     counts other than the ungated run's; then reference -k 75 -> align
+     -r -> dumpalign -a equal to dumpalign -r --reads and to dumpalign -g;
+     the first BATCH gated reads through the port on the CPU (plain
+     versions, asked for by SHOTGUN_TPU_TORCH_DEVICE) equal to the card's;
+     stages, reads/s and peak device memory printed;
+ 10. the library's ``align_packed_reads`` on the golden corpus on the sort
+     join, the 4-slot hash (H2) and at k = 35 (the word join): its summary
+     and read store equal ``align_stream``'s and the summary the plain
+     case's at k = 11.
 
 Then one JSON line of per-kernel results and, last, the device line.  Any
 failure raises and exits non-zero; so does a machine without CUDA, and a
@@ -79,7 +101,8 @@ Kernel H1 (encode_window) replaces two TPU kernels, the rolling encode and
 the quality sums, in one launch; its entry gives the time of each mode,
 and its launch count is that of every H1 launch on the main path (the
 device build's window encode and the batches, with the MKQ gate, so keys
-and sums together); each timed mode carries its own main-path launches.
+and sums together); each timed mode carries its own main-path launches,
+and the multi-word mode the H1 launches of phase 9's MKQ run, its path.
 Kernel H2's entry likewise gives the 16-slot table (the main path's) and
 the 4-slot one (launched on the `hash` routes) as two modes.
 Each kernel's launches on every path (the main path and the four
@@ -92,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gzip
 import hashlib
 import io
 import json
@@ -105,6 +129,15 @@ import time
 
 import numpy as np
 
+from shotgun_tpu_torch.utils.synth import (
+    ERROR_RATE,
+    MUTATION_RATE,
+    READ_LEN,
+    STRAIN_ANCESTORS,
+    STRAIN_GENOMES,
+    STRAIN_LEN,
+)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 GOLDEN_CASES = ["plain", "m2", "m0", "p0", "p5", "pneg", "mrq", "mkq",
@@ -116,12 +149,6 @@ LPAD = 160
 N_GENOMES = 32
 GENOME_LEN = 1_000_000
 N_READS = 524_288
-READ_LEN = 150
-#: the strain panel: N_GENOMES = STRAINS ancestors x 4 mutated copies
-STRAINS = 8
-STRAIN_LEN = 200_000
-MUTATION_RATE = 0.01
-ERROR_RATE = 0.005
 #: golden routes: (name, environment)
 GOLDEN_ROUTES = [("auto", {}), ("sort", {"SHOTGUN_TPU_PROBE": "sort"}),
                  ("hash", {"SHOTGUN_TPU_PROBE": "hash"}),
@@ -140,6 +167,18 @@ EXT_LEN = 20_000
 H2_EDGE_N = (1, 31, 32, 33, 255, 257)
 #: an empty slot's set id in a hash table row
 H2_EMPTY = np.uint32(0xFFFFFFFF)
+#: multi-word keys: the k of H1's composition checks, the timed k and the
+#: k of phase 9
+WORD_KS = (32, 62, 64, 75, 93, 150)
+K_WORDS = 75
+#: phase 9's gated run: raw quality bytes uniform in WORD_QUAL (mean 53),
+#: and an MKQ gate at that mean, so about half the 75-base windows fail it
+WORD_QUAL = (33, 73)
+WORD_MKQ = 53
+RUNLOG = os.path.join(GOLDEN, "runlog")
+#: the runlog dumpalign cases of multi-word keys (k = 75 and 150)
+RUNLOG_WORD_CASES = ["rl-small-k75-m1p1", "rl-small-k75-m5p5",
+                     "rl-mid-k150-flags", "rl-mid-k150-mg0"]
 PALLAS = "shotgun_tpu/ops/pallas/kernels.py"
 CSRC = "shotgun_tpu_torch/ops/kernels/csrc"
 
@@ -182,6 +221,17 @@ def timed(fn, plain, out_bytes: int, iters: int, plain_iters: int = 5):
     return ms, plain_ms
 
 
+def padded_rows(rng, device, rows: int, length: int, lo: int, hi: int):
+    """uint8 [rows, length] of values in [lo, hi) on ``device``, zero past
+    a random length, as the native fill pads its rows."""
+    import torch
+
+    x = rng.integers(lo, hi, size=(rows, length), dtype=np.uint8)
+    x[np.arange(length)[None, :] >= rng.integers(length // 2, length + 1,
+                                                 size=rows)[:, None]] = 0
+    return torch.from_numpy(x).to(device)
+
+
 def h1_edge_checks(rng, device) -> tuple:
     """H1 against its plain version at the edge shapes: k in {1, 2, 15,
     31}; 1, 7 and 32768 rows of 8, 40 and 41 packed bytes; a single row
@@ -193,10 +243,7 @@ def h1_edge_checks(rng, device) -> tuple:
     from shotgun_tpu_torch.ops.encode import H1_SPAN, encode_window, encode_window_plain
 
     def padded(rows, length, lo, hi):
-        x = rng.integers(lo, hi, size=(rows, length), dtype=np.uint8)
-        x[np.arange(length)[None, :] >= rng.integers(length // 2, length + 1,
-                                                     size=rows)[:, None]] = 0
-        return torch.from_numpy(x).to(device)
+        return padded_rows(rng, device, rows, length, lo, hi)
 
     cases, worst = 0, 0
     for k in (1, 2, 15, 31):
@@ -214,6 +261,36 @@ def h1_edge_checks(rng, device) -> tuple:
         worst = max(worst, max_abs_err([encode_window(None, k, qual)[1]],
                                        [encode_window_plain(None, k, qual)[1]]))
         cases += 1
+    torch.cuda.synchronize()
+    return cases, worst
+
+
+def h1_word_checks(rng, packed_d, qual_d, device) -> tuple:
+    """H1's multi-word composition (``encode_words`` on the card) against
+    ``encode_words_plain``, keys only and with sums, at every k of WORD_KS:
+    on the main path's batch, and on 1 and 7 rows of ceil(k / 4), + 1, + 3
+    and 41 packed bytes and one row a tile long.  (cases, max |err|)."""
+    import torch
+
+    from shotgun_tpu_torch.ops.encode import H1_SPAN, encode_words, encode_words_plain
+
+    def flat(out):
+        words, sums = out
+        return list(words) + ([sums] if sums is not None else [])
+
+    cases, worst = 0, 0
+    for k in WORD_KS:
+        first = -(-k // 4)
+        inputs = [(packed_d, qual_d)]
+        for rows, width in [(r, w) for r in (1, 7) for w in (first, first + 1, first + 3, 41)
+                            ] + [(1, (H1_SPAN - 64 + k + 3) // 4)]:
+            inputs.append((padded_rows(rng, device, rows, width, 0, 256),
+                           padded_rows(rng, device, rows, 4 * width, 33, 127)))
+        for packed, qual in inputs:
+            for q in (None, qual):
+                worst = max(worst, max_abs_err(flat(encode_words(packed, k, q)),
+                                               flat(encode_words_plain(packed, k, q))))
+                cases += 1
     torch.cuda.synchronize()
     return cases, worst
 
@@ -335,7 +412,10 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
     from shotgun_tpu_torch.ops.encode import (
         encode_window,
         encode_window_plain,
+        encode_words,
+        encode_words_plain,
         pack_codes_2bit,
+        word_spans,
     )
     from shotgun_tpu_torch.ops.probe import (
         STASH_POS_BASE,
@@ -368,11 +448,12 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
     err_enc = max_abs_err([keys, row_keys], [keys_p, row_keys_p])
     err_qual = max_abs_err(kq, kq_p)
     del row_keys, row_keys_p, kq, kq_p
+    n_word, err_word = h1_word_checks(rng, packed_d, qual_d, device)
 
-    if max(err_edge, err_enc, err_qual, err_h2_edge) != 0:
+    if max(err_edge, err_enc, err_qual, err_h2_edge, err_word) != 0:
         raise AssertionError(f"kernel != plain: encode edges {err_edge}, encode "
                              f"{err_enc}, encode+qual {err_qual}, probe edges "
-                             f"{err_h2_edge}")
+                             f"{err_h2_edge}, multi-word encode {err_word}")
 
     # H2: the device-assembled 16-slot table of phase 3 and the strain
     # panel's 4-slot table, each probed with one batch of its reads (the
@@ -416,6 +497,10 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
             "stash_hits": stash_hits})
     del tab4, case, args
     nwin = LPAD - K + 1
+    # the multi-word composition: packed codes and quality in, the words
+    # (int64) and sums (int32) of every window out
+    wwin, nwords = LPAD - K_WORDS + 1, len(word_spans(K_WORDS))
+    word_out = b * wwin * (8 * nwords + 4)
     h1_modes = [
         # (shape, mode, bytes, kernel, plain, output bytes)
         (f"[{b}, {LPAD}]", "keys+sums", h1_bytes(b, LPAD // 4, K, True, True),
@@ -428,10 +513,17 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
          h1_bytes(1, row_d.shape[1], K, True, False),
          lambda: encode_window(row_d, K), lambda: encode_window_plain(row_d, K),
          (row_d.shape[1] * 4 - K + 1) * 8),
+        (f"[{b}, {LPAD}]", f"words k={K_WORDS}, keys+sums",
+         b * (LPAD // 4 + LPAD) + word_out,
+         lambda: encode_words(packed_d, K_WORDS, qual_d),
+         lambda: encode_words_plain(packed_d, K_WORDS, qual_d), word_out),
     ]
     modes = []
     for shape, mode, nbytes, fn, plain, out_bytes in h1_modes:
-        ms, plain_ms = timed(fn, plain, out_bytes, 200)
+        # a composition call costs the host far more than one H1 launch:
+        # 32 of them are queued within the sleep kernel's ~10 ms, so its
+        # loop stays device-paced
+        ms, plain_ms = timed(fn, plain, out_bytes, 32 if mode.startswith("words") else 200)
         modes.append({"shape": shape, "mode": mode, "bytes": nbytes,
                       "bound_ms": bound_ms(nbytes), "bound_share": bound_ms(nbytes) / ms,
                       "ms": ms, "plain_ms": plain_ms, "library_ms": None})
@@ -441,7 +533,8 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
     results = [
         {"name": "encode_window", "route": "cuda",
          "source": f"{CSRC}/encode_window.cu", "replaces": f"{PALLAS}:74",
-         "also_replaces": f"{PALLAS}:107", "max_abs_err": max(err_edge, err_enc, err_qual),
+         "also_replaces": f"{PALLAS}:107",
+         "max_abs_err": max(err_edge, err_enc, err_qual, err_word),
          "ms": main_mode["ms"], "plain_ms": main_mode["plain_ms"],
          "bound_ms": main_mode["bound_ms"], "bound_by": "bytes",
          "bound_share": main_mode["bound_share"], "bytes": main_mode["bytes"],
@@ -449,7 +542,7 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
          "library_reason": no_library % (
              "2-bit unpack, k-mer encode and window quality sums in one pass",
              "an unpack, k shift-or steps and a cumsum"),
-         "edge_cases_checked": n_edge, "modes": modes},
+         "edge_cases_checked": n_edge, "word_cases_checked": n_word, "modes": modes},
         {"name": "hash_probe", "route": "cuda",
          "source": f"{CSRC}/hash_probe.cu", "replaces": f"{PALLAS}:162",
          "max_abs_err": max(err_h2_edge, *(m["max_abs_err"] for m in h2_modes)),
@@ -464,13 +557,16 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
     say("phase 4 kernels == plain (integer outputs, tolerance 0): H1 at %d edge "
         "cases (k 1/2/15/31; 1, 7, 32768 rows of 8/40/41 packed bytes; a row one "
         "tile long; keys, sums, both) and at B=%d L=%d k=%d, and on the genome as "
-        "one row of %d bases; H2 at %d edge cases (4 and 16 slots; stash 0/1/64 "
+        "one row of %d bases; H1's multi-word composition at %d cases (k %s; the "
+        "batch, 1 and 7 ragged rows, a row a tile long; keys, keys and sums); "
+        "H2 at %d edge cases (4 and 16 slots; stash 0/1/64 "
         "rows; n %s) and on one batch of B=%d reads (and one window more) on the "
         "device-assembled 16-slot table of phase 3 and on the strain panel's "
         "4-slot table (host "
         "build %.3f s). Times (launches queued behind a sleep kernel, outputs "
         "rotated past the L2): %s" % (
-            n_edge, b, LPAD, K, row_d.shape[1] * 4, n_h2_edge,
+            n_edge, b, LPAD, K, row_d.shape[1] * 4, n_word,
+            "/".join(map(str, WORD_KS)), n_h2_edge,
             "/".join(map(str, H2_EDGE_N)), b, table4_s,
             "; ".join("%s %s %s %.4f ms vs plain %.4f ms, %d B, bound %.4f ms, "
                       "%.1f%% of it%s" % (
@@ -485,12 +581,12 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
 
 
 def run_cli(argv, env=None, out_path=None) -> str:
-    """The port's CLI in process, with the route variables set to ``env``
-    for the call; stdout goes to ``out_path`` when given (and "" is
-    returned)."""
+    """The port's CLI in process, with the route variables and any other
+    of ``env`` set to ``env`` for the call; stdout goes to ``out_path``
+    when given (and "" is returned)."""
     from shotgun_tpu_torch.cli import main as cli_main
 
-    saved = {name: os.environ.pop(name, None) for name in ROUTE_ENV}
+    saved = {name: os.environ.pop(name, None) for name in ROUTE_ENV + tuple(env or ())}
     os.environ.update(env or {})
     buf = io.StringIO()
     try:
@@ -681,7 +777,8 @@ def phase_strains(fa: str, fq: str) -> dict:
         raise AssertionError(f"strain panel: implausible statistics {stats}")
     say("phase 6 strain panel (%d genomes = %d ancestors x %d copies of %d bp at "
         "%.1f%% mutation, %d reads at %.1f%% errors): summaries byte-equal on "
-        "%d routes, %s; %s" % (N_GENOMES, STRAINS, N_GENOMES // STRAINS, STRAIN_LEN,
+        "%d routes, %s; %s" % (STRAIN_GENOMES, STRAIN_ANCESTORS,
+                               STRAIN_GENOMES // STRAIN_ANCESTORS, STRAIN_LEN,
                                100 * MUTATION_RATE, N_READS, 100 * ERROR_RATE,
                                len(routes), stats, "; ".join(parts)))
     return by_route
@@ -713,10 +810,27 @@ def phase_goldens(tmp: str) -> None:
         if run_cli(["-t", "dumpalign", "-a", aln], env) != golden("plain"):
             raise AssertionError(f"reference -> align -> dumpalign -a ({route}): "
                                  "output differs from the plain case")
+    from shotgun_tpu_torch.ops.encode import encode_window
+    from shotgun_tpu_torch.ops.probe import hash_probe
+
+    with open(os.path.join(RUNLOG, "manifest.json")) as fh:
+        runlog = json.load(fh)
+    data = os.path.join(RUNLOG, "data") + "/"
+    for case in RUNLOG_WORD_CASES:
+        argv = [a.replace("data/", data) for a in runlog[case]["args"]]
+        encode_window.launches = hash_probe.launches = 0
+        out = run_cli(argv + ["--batch-size", "512"])
+        with gzip.open(os.path.join(RUNLOG, f"{case}.out.gz"), "rt") as fh:
+            if out != fh.read():
+                raise AssertionError(f"runlog golden {case}: output differs")
+        if encode_window.launches <= 0 or hash_probe.launches != 0:
+            raise AssertionError(f"runlog golden {case}: H1 {encode_window.launches} "
+                                 f"launches, H2 {hash_probe.launches}")
     say(f"phase 7 goldens: {len(GOLDEN_CASES)} dumpalign and {len(DUMPREF_CASES)} "
         "dumpref cases byte-equal on the card, and reference -> align -> "
         "dumpalign -a equal to the plain case, on each route: "
-        f"{', '.join(r for r, _ in GOLDEN_ROUTES)}")
+        f"{', '.join(r for r, _ in GOLDEN_ROUTES)}; the runlog dumpalign cases of "
+        f"multi-word keys byte-equal on the auto route: {', '.join(RUNLOG_WORD_CASES)}")
 
 
 def sha256(path: str) -> str:
@@ -901,6 +1015,148 @@ def phase_extsim(tmp: str, rng, device) -> None:
     os.remove(out)
 
 
+def low_quality_windows(qual: np.ndarray, k: int, mkq: int) -> int:
+    """Windows of k bases whose raw quality sum is below ``mkq * k``, over
+    every row of ``qual`` (the MKQ gate's filtered_quality_kmers)."""
+    cs = np.zeros((qual.shape[0], qual.shape[1] + 1), dtype=np.int32)
+    np.cumsum(qual, axis=1, dtype=np.int32, out=cs[:, 1:])
+    return int(((cs[:, k:] - cs[:, :-k]) < mkq * k).sum())
+
+
+def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
+                qual: np.ndarray) -> dict:
+    """Phase 9: the strain panel at k = K_WORDS (multi-word keys) through
+    the CLI, held against its own invariants, the gate's count from numpy,
+    the file round trip and the CPU; ``fq_q`` holds ``fq``'s reads with
+    the qualities ``qual`` and ``fq_q_head`` its first BATCH reads.
+    Returns each run's kernel launches."""
+    k = str(K_WORDS)
+    gate = ["--min-kmer-quality", str(WORD_MKQ)]
+    runs = (("no gate", fq, []), (f"random quality, MKQ {WORD_MKQ}", fq_q, gate))
+    outs, parts, by_path = [], [], {}
+    for name, reads, flags in runs:
+        out, st, launches, wall, peak = counted_run(
+            ["-t", "dumpalign", "-g", fa, "-k", k, "--reads", reads] + flags)
+        # the device build declines k > 31 (stage db_build_device, empty),
+        # and the host builds
+        if "db_build" not in st or st.get("db_build_device", 0.0) > 0.1:
+            raise AssertionError(f"k={k} {name}: not the host build: {st}")
+        if launches["encode_window"] <= 0 or launches["hash_probe"] != 0:
+            raise AssertionError(f"k={k} {name}: launches {launches}")
+        stats = json.loads(out)["Statistics"]
+        mapped = [stats[key] for key in ("unique_mapped_reads", "ambiguous_mapped_reads",
+                                         "unmapped_reads")]
+        if sum(mapped) != N_READS or not mapped[0] or not mapped[1]:
+            raise AssertionError(f"k={k} {name}: implausible statistics {stats}")
+        outs.append((json.loads(out), mapped))
+        by_path[f"k={k} strains dumpalign -g, {name}"] = launches
+        parts.append("%s: wall %.3f s (fasta %.3f s, host build %.3f s, stream %.3f s "
+                     "= %.0f reads/s aligned), peak device memory %d B, launches %s, "
+                     "%s" % (name, wall, st.get("fasta_parse", 0.0), st["db_build"],
+                             st["stream_align"], N_READS / st["stream_align"], peak,
+                             launches, stats))
+    # the gate counts each window below it, and filtering them moves reads
+    want = low_quality_windows(qual, K_WORDS, WORD_MKQ)
+    got = outs[1][0]["Statistics"]["filtered_quality_kmers"]
+    if got != want or not 0 < want < qual.shape[0] * (READ_LEN - K_WORDS + 1):
+        raise AssertionError(f"k={k}: the MKQ gate filtered {got} windows, numpy {want}")
+    if outs[1][1] == outs[0][1]:
+        raise AssertionError(f"k={k}: the MKQ gate moved no read: {outs[1][1]}")
+    parts.append(f"MKQ {WORD_MKQ} filtered {got} of "
+                 f"{qual.shape[0] * (READ_LEN - K_WORDS + 1)} windows (numpy: {want})")
+
+    kdb, aln = os.path.join(tmp, "s75.kdb"), os.path.join(tmp, "s75.aln")
+    _, ref_st, _, ref_wall, _ = counted_run(
+        ["-t", "reference", "-g", fa, "-k", k, "-r", kdb], stream=False)
+    _, st, launches, wall, peak = counted_run(["-t", "align", "-r", kdb, "--reads", fq,
+                                               "-a", aln])
+    by_path[f"k={k} strains align -r"] = launches
+    direct, dst, _, _, _ = counted_run(["-t", "dumpalign", "-r", kdb, "--reads", fq])
+    if run_cli(["-t", "dumpalign", "-a", aln]) != direct:
+        raise AssertionError(f"k={k}: dumpalign -a != dumpalign -r --reads")
+    if json.loads(direct) != outs[0][0]:
+        raise AssertionError(f"k={k}: dumpalign -r != dumpalign -g")
+    parts.append("reference: host build %.3f s, .kdb write %.3f s, wall %.3f s, .kdb %d "
+                 "B; align -r: stream %.3f s = %.0f reads/s aligned (read store %.3f "
+                 "s), .aln write %.3f s, wall %.3f s, peak %d B, launches %s; "
+                 "dumpalign -r --reads: stream %.3f s = %.0f reads/s aligned" % (
+                     ref_st["db_build"], ref_st["kdb_save"], ref_wall,
+                     os.path.getsize(kdb), st["stream_align"],
+                     N_READS / st["stream_align"], st["read_store"], st["aln_save"],
+                     wall, peak, launches, dst["stream_align"],
+                     N_READS / dst["stream_align"]))
+
+    # the first BATCH gated reads on the card and on the CPU (plain versions)
+    head = ["-t", "dumpalign", "-r", kdb, "--reads", fq_q_head] + gate
+    card = run_cli(head)
+    t0 = time.perf_counter()
+    cpu = run_cli(head, {"SHOTGUN_TPU_TORCH_DEVICE": "cpu"})
+    cpu_s = time.perf_counter() - t0
+    head_want = low_quality_windows(qual[:BATCH], K_WORDS, WORD_MKQ)
+    head_got = json.loads(card)["Statistics"]["filtered_quality_kmers"]
+    if cpu != card or head_got != head_want:
+        raise AssertionError(f"k={k}: the first {BATCH} reads differ on the CPU, or "
+                             f"filtered {head_got} windows, numpy {head_want}")
+    parts.append(f"the first {BATCH} reads with MKQ {WORD_MKQ}: the card's summary == the "
+                 f"CPU's (plain versions, {cpu_s:.3f} s), {head_got} windows filtered")
+    os.remove(kdb)
+    os.remove(aln)
+    say("phase 9 multi-word keys, k=%s on the strain panel (%d reads): host build + "
+        "word sort join, H1 launched and H2 not, statistics plausible, the MKQ gate's "
+        "count == numpy's and its reads moved, dumpalign -a == -r --reads == -g; %s" % (
+            k, N_READS, "; ".join(parts)))
+    return by_path
+
+
+def phase_packed() -> dict:
+    """Phase 10: ``align_packed_reads`` against ``align_stream`` on the
+    golden corpus, on the sort join, the 4-slot hash (H2) and k = 35;
+    returns each packed run's kernel launches."""
+    from shotgun_tpu_torch.aligner import PseudoAlignment, ReadMappingType
+    from shotgun_tpu_torch.io.data_file import FASTAFile, FASTAQFile, open_fastq_stream
+    from shotgun_tpu_torch.io.packing import pack_reads
+    from shotgun_tpu_torch.ops.encode import encode_window
+    from shotgun_tpu_torch.ops.probe import hash_probe
+    from shotgun_tpu_torch.reference import PROBE_ENV, KmerReference
+
+    data = os.path.join(GOLDEN, "data")
+    fa, fq = os.path.join(data, "corpus.fa"), os.path.join(data, "corpus.fq")
+    batch = pack_reads(list(FASTAQFile(fq).container))
+    genomes = FASTAFile(fa).container
+    by_path = {}
+    for route, k, hashed in (("sort", 11, False), ("hash", 11, True), ("sort", 35, False)):
+        os.environ[PROBE_ENV] = route
+        try:
+            ref = KmerReference(k, genomes)
+            runs = []
+            for packed in (False, True):
+                aln = PseudoAlignment(ref)
+                encode_window.launches = hash_probe.launches = 0
+                if packed:
+                    aln.align_packed_reads(batch, batch_size=16)
+                else:
+                    aln.align_stream(open_fastq_stream(fq), batch_size=16, store_reads=True)
+                # JSON text: the Summary's order counts
+                runs.append((json.dumps(aln.get_summary()),
+                             [aln.get_reads_by_mapping_type(t) for t in ReadMappingType]))
+        finally:
+            os.environ.pop(PROBE_ENV)
+        name = f"k={k} {route}"
+        launches = {"encode_window": encode_window.launches,
+                    "hash_probe": hash_probe.launches}
+        if runs[0] != runs[1]:
+            raise AssertionError(f"align_packed_reads ({name}) != align_stream")
+        if k == 11 and runs[1][0] != json.dumps(json.loads(golden("plain"))):
+            raise AssertionError(f"align_packed_reads ({name}): not the plain case")
+        if launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed:
+            raise AssertionError(f"align_packed_reads ({name}): launches {launches}")
+        by_path[f"align_packed_reads, {name}"] = launches
+    say("phase 10 align_packed_reads == align_stream (summary and read store) on the "
+        "golden corpus, %d reads: %s" % (batch.num_reads, "; ".join(
+            f"{p}: launches {n}" for p, n in by_path.items())))
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -914,9 +1170,11 @@ def main() -> int:
     from shotgun_tpu_torch.io import native
     from shotgun_tpu_torch.ops.kernels.build import build, load_library
     from shotgun_tpu_torch.utils.synth import (
-        make_genomes,
         sample_reads,
+        strain_panel,
+        strain_reads,
         synth_genomes,
+        write_fastq,
         write_workload,
     )
 
@@ -954,8 +1212,11 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     genomes = synth_genomes(rng, N_GENOMES, GENOME_LEN)
     work = sample_reads(rng, genomes, N_READS, READ_LEN)
-    strains = make_genomes(rng, N_GENOMES, STRAIN_LEN, STRAINS, MUTATION_RATE)
-    strain_work = sample_reads(rng, strains, N_READS, READ_LEN, ERROR_RATE)
+    strains = strain_panel(rng)
+    strain_work = strain_reads(rng, strains, N_READS)
+    # phase 9's qualities, from a generator of their own
+    strain_qual = np.random.default_rng([args.seed, 9]).integers(
+        WORD_QUAL[0], WORD_QUAL[1] + 1, size=strain_work.codes.shape, dtype=np.uint8)
 
     # 3. database build, device against host; 4. kernels against plain
     tab, strain_index = phase_db_build([("32 Mbp main-path genomes", genomes),
@@ -976,7 +1237,10 @@ def main() -> int:
 
         # 6. strain panel on four routes
         sfa, sfq = os.path.join(tmp, "s.fa"), os.path.join(tmp, "s.fq")
+        sqfq, sqfq_head = os.path.join(tmp, "sq.fq"), os.path.join(tmp, "sq_head.fq")
         write_workload(strain_work, sfa, sfq)
+        write_fastq(sqfq, strain_work.codes, strain_qual)
+        write_fastq(sqfq_head, strain_work.codes[:BATCH], strain_qual[:BATCH])
         del strains, strain_work
         by_path = {"main path": launches, **phase_strains(sfa, sfq)}
         torch.cuda.empty_cache()
@@ -990,13 +1254,24 @@ def main() -> int:
         by_path["32 Mbp align"] = phase_main_files(tmp, fa, fq, gi)
         torch.cuda.empty_cache()
         phase_extsim(tmp, rng, device)
+        torch.cuda.empty_cache()
+
+        # 9. multi-word keys at size; 10. the library's packed route
+        words_by_path = phase_words(tmp, sfa, sfq, sqfq, sqfq_head, strain_qual)
+        by_path.update(words_by_path)
+        torch.cuda.empty_cache()
+        by_path.update(phase_packed())
     torch.cuda.empty_cache()
 
+    word_launches = words_by_path[
+        f"k={K_WORDS} strains dumpalign -g, random quality, MKQ {WORD_MKQ}"]
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]
         kr["launches_by_path"] = {p: n[kr["name"]] for p, n in by_path.items()}
         for m in kr["modes"]:
             m["launches_main_path"] = by_mode[kr["name"]].get(m["mode"], 0)
+            if m["mode"].startswith("words"):
+                m["launches_word_path"] = word_launches[kr["name"]]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
-"""``PseudoAlignment`` for the port: streamed alignment with the dumpalign
-aggregation and the align task's read store (counterpart of
-``shotgun_tpu/aligner.py``: ``align_stream``, its container fallback,
-the read store and the ``.aln`` file).
+"""``Read`` and ``PseudoAlignment`` for the port (counterpart of
+``shotgun_tpu/aligner.py``): the single-read API on the host, and
+streamed or packed alignment on the device with the dumpalign aggregation,
+the align task's read store and the ``.aln`` file.
 
 Chunks come from the shared native fill (``FASTAQStream.chunks_packed``:
 codes 2-bit packed, quality only when a gate reads it) on a producer
@@ -23,6 +23,7 @@ import io
 import json
 import queue
 import threading
+from collections import namedtuple
 from enum import Enum
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
@@ -32,7 +33,8 @@ import torch
 from shotgun_tpu_torch.errors import UserInputError
 from shotgun_tpu_torch.io import native
 from shotgun_tpu_torch.io.native import LmaxExceeded, NativeParseError
-from shotgun_tpu_torch.io.packing import pack_reads
+from shotgun_tpu_torch.index.build import rolling_encode_words, sort_keys_from_words
+from shotgun_tpu_torch.io.packing import ReadBatch, encode_bases, pack_reads
 from shotgun_tpu_torch.io.records import SeqRecord
 from shotgun_tpu_torch.models.pipeline import (
     FOLD_INF,
@@ -43,9 +45,10 @@ from shotgun_tpu_torch.models.pipeline import (
     align_batch,
     init_fold_carry,
     store_lists,
+    unmapped_batch,
 )
 from shotgun_tpu_torch.ops.encode import pack_codes_2bit
-from shotgun_tpu_torch.reference import KDBFormatError, KmerReference
+from shotgun_tpu_torch.reference import KDBFormatError, KmerReference, not_ported
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.profiling import phase
 
@@ -72,6 +75,14 @@ class ReadMappingType(Enum):
     AMBIGUOUSLY_MAPPED = 3
 
 
+class KmerSpecifity(Enum):
+    SPECIFIC = 1
+    UNSPECIFIC = 2
+
+
+ReadKmer = namedtuple("ReadKmer", ["specifity", "references"])
+ReadMapping = namedtuple("ReadMapping", ["type", "genomes_mapped_to"])
+
 # device mtype codes (models/pipeline.py) -> ReadMappingType
 _MTYPE_FROM_CODE = {
     0: ReadMappingType.UNMAPPED,
@@ -79,6 +90,174 @@ _MTYPE_FROM_CODE = {
     2: ReadMappingType.AMBIGUOUSLY_MAPPED,
 }
 _CODE_FROM_MTYPE = {v: k for k, v in _MTYPE_FROM_CODE.items()}
+
+
+class Read:
+    """One sequencing read, aligned on the host against the reference's
+    index (reference kmer.py:357-526; the JAX package's ``Read``).  The
+    single-read API and a readable specification of the batched path."""
+
+    def __init__(self, fastaq_record: SeqRecord) -> None:
+        self.identifier: str = fastaq_record.identifier
+        self.mapping = ReadMapping(ReadMappingType.UNMAPPED, [])
+        self.kmers: Dict[str, ReadKmer] = {}
+        self._seq: str = fastaq_record["sequence"]
+        self._qual: str = fastaq_record["quality_sequence"]
+        self.num_quality_filtered_kmers: int = 0
+        self.num_redundant_kmers: int = 0
+        self._record_ids: List[int] = []  # the mapping list as record ids
+        self._stored: Dict[int, bool] = {}  # k-mer id -> specific?
+        self._ref: Optional[KmerReference] = None
+
+    def mean_quality(self) -> float:
+        return sum(map(ord, self._qual)) / len(self._qual)
+
+    def kmer_quality(self, start: int, k: int) -> float:
+        return sum(map(ord, self._qual[start: start + k])) / k
+
+    def pseudo_align(
+        self,
+        kmer_reference: KmerReference,
+        m: int = 1,
+        p: int = 1,
+        min_read_quality: Optional[int] = None,
+        min_kmer_quality: Optional[int] = None,
+        max_genomes: Optional[int] = None,
+        debug: bool = False,
+    ) -> ReadMappingType:
+        if not (
+            isinstance(kmer_reference, KmerReference)
+            and isinstance(m, int)
+            and isinstance(p, int)
+            and (min_read_quality is None or isinstance(min_read_quality, int))
+            and (min_kmer_quality is None or isinstance(min_kmer_quality, int))
+            and (max_genomes is None or isinstance(max_genomes, int))
+            and isinstance(debug, bool)
+        ):
+            raise TypeError(
+                f"Invalid types given to pseudo align: {type(kmer_reference)}, "
+                f"{type(p)}, {type(m)}, {type(debug)}")
+        if m < 0:
+            raise UserInputError("m must be bigger than or equal to 0")
+        if min_read_quality is not None and self.mean_quality() < min_read_quality:
+            return ReadMappingType.UNMAPPED
+
+        self.extract_kmer_references(kmer_reference, min_kmer_quality, max_genomes)
+        if not self._stored:
+            return ReadMappingType.UNMAPPED
+        if self.try_to_align_specific(m):
+            if debug:
+                print("[DEBUG pseudo_align]: After try_to_align_specific "
+                      f"self.mapping: {self.mapping.type}")
+            self.validate_unique_mappings(p)
+            return self.mapping.type
+        if debug:
+            print("[DEBUG pseudo_align]: After try_to_align_specific "
+                  f"self.mapping: {self.mapping.type}, mapped to: {self.mapping}")
+        return ReadMappingType.AMBIGUOUSLY_MAPPED
+
+    def extract_kmer_references(
+        self,
+        kmer_reference: KmerReference,
+        min_kmer_quality: Optional[int] = None,
+        max_genomes: Optional[int] = None,
+    ) -> None:
+        """Look every window up, apply the MKQ and max-genomes gates in
+        window order, and keep the k-mers that pass by first occurrence
+        (reference kmer.py:410-429)."""
+        self._ref = kmer_reference
+        idx = kmer_reference.index
+        k = idx.k
+        words, _ = rolling_encode_words(encode_bases(self._seq), k)
+        keys = sort_keys_from_words(words)
+        table_keys = idx.sort_keys()
+        if keys.size and table_keys.size:
+            pos = np.searchsorted(table_keys, keys)
+            clamped = np.minimum(pos, table_keys.size - 1)
+            hits = np.where(table_keys[clamped] == keys, clamped, -1)
+        else:
+            hits = np.full(keys.size, -1, dtype=np.int64)
+
+        genome_counts = idx.genome_counts()
+        qual_ord = np.frombuffer(self._qual.encode("ascii"), dtype=np.uint8).astype(np.int32)
+        qual_cs = np.concatenate([[0], np.cumsum(qual_ord)])
+
+        self._stored = {}
+        for w in range(hits.size):
+            if min_kmer_quality is not None:
+                if qual_cs[w + k] - qual_cs[w] < min_kmer_quality * k:
+                    self.num_quality_filtered_kmers += 1
+                    continue
+            kid = int(hits[w])
+            if kid < 0:
+                continue
+            if max_genomes is not None and genome_counts[kid] > max_genomes:
+                self.num_redundant_kmers += 1
+                continue
+            if kid not in self._stored:
+                self._stored[kid] = bool(genome_counts[kid] == 1)
+
+        recs = kmer_reference._materialized_records()
+        for kid, specific in self._stored.items():
+            self.kmers[idx.kmer_string(kid)] = ReadKmer(
+                specifity=(KmerSpecifity.SPECIFIC if specific
+                           else KmerSpecifity.UNSPECIFIC),
+                references={recs[r]: set(int(x) for x in idx.positions_of(kid, r))
+                            for r in idx.records_of_kmer(kid)})
+
+    def _genome_count_ids(self, map_count: bool = False) -> Dict[int, int]:
+        """Per-record distinct-k-mer counts in insertion order, by record
+        id (reference kmer.py:431-442)."""
+        idx = self._ref.index
+        counts: Dict[int, int] = {}
+        for kid, specific in self._stored.items():
+            if map_count and not specific:
+                continue
+            for r in idx.records_of_kmer(kid):
+                r = int(r)
+                counts[r] = counts.get(r, 0) + 1
+        return counts
+
+    def generate_genome_counts(self, map_count: bool = False):
+        """The counts keyed by genome records (reference kmer.py:431-442)."""
+        recs = self._ref._materialized_records()
+        return {recs[r]: c for r, c in self._genome_count_ids(map_count).items()}
+
+    def try_to_align_specific(self, m: int) -> bool:
+        """The m-decision over specific k-mer counts (reference
+        kmer.py:444-462)."""
+        if m < 0:
+            raise UserInputError("m must be non-negative")
+        spec = self._genome_count_ids(map_count=True)
+        recs = self._ref._materialized_records()
+        if len(spec) == 1:
+            self._set_mapping(ReadMappingType.UNIQUELY_MAPPED, [next(iter(spec))], recs)
+            return True
+        if len(spec) > 1:
+            ranked = sorted(spec, key=lambda r: spec[r], reverse=True)
+            if spec[ranked[0]] >= spec[ranked[1]] + m:
+                self._set_mapping(ReadMappingType.UNIQUELY_MAPPED, [ranked[0]], recs)
+                return True
+        self._set_mapping(ReadMappingType.AMBIGUOUSLY_MAPPED, list(spec.keys()), recs)
+        return False
+
+    def validate_unique_mappings(self, p: int) -> None:
+        """The p-validation: a downgrade to ambiguous lists the winner
+        twice (reference kmer.py:464-480)."""
+        if self.mapping.type != ReadMappingType.UNIQUELY_MAPPED or p < 0:
+            return
+        total = self._genome_count_ids(map_count=False)
+        winner = self._record_ids[0]
+        mt = total.get(winner, 0)
+        if max(total.values(), default=0) - mt > p:
+            amb = [winner] + [r for r, c in total.items() if c >= mt]
+            self._set_mapping(ReadMappingType.AMBIGUOUSLY_MAPPED, amb,
+                              self._ref._materialized_records())
+
+    def _set_mapping(self, mtype: ReadMappingType, record_ids: List[int],
+                     recs: List[SeqRecord]) -> None:
+        self._record_ids = [int(r) for r in record_ids]
+        self.mapping = ReadMapping(mtype, [recs[r] for r in self._record_ids])
 
 
 def _prefetch_iter(it: Iterable, depth: int = 2) -> Iterator:
@@ -168,9 +347,11 @@ class PseudoAlignment:
     (reference kmer.py:532-699), with the read store of the align task."""
 
     def __init__(self, kmer_reference: KmerReference,
-                 device: Union[str, torch.device]) -> None:
+                 device: Optional[Union[str, torch.device]] = None) -> None:
+        """``device`` (default the reference's) is where reads align."""
         self.kmer_reference = kmer_reference
-        self.device = torch.device(device)
+        self.device = (kmer_reference.device if device is None
+                       else torch.device(device))
         r = kmer_reference.index.num_records
         # read store: whole-batch blocks of mapping lists (only ever
         # concatenated: save, load and the summary never index per read)
@@ -196,15 +377,86 @@ class PseudoAlignment:
         self.filter_kmer_quality_flag = False
         self.filter_max_genomes_flag = False
 
+    # -- single-read API (host) -----------------------------------------------
+
+    def add_read(self, read: Read) -> None:
+        """Store an aligned ``Read`` and count it, as one batch of one."""
+        if read.identifier in self._seen_ids:
+            raise AddingExistingRead(
+                f"There already exists a read with identifier: {read.identifier}")
+        self._seen_ids.add(read.identifier)
+        self._read_ids.append(read.identifier)
+        code = _CODE_FROM_MTYPE[read.mapping.type]
+        self._mtypes.append(code)
+        ids = np.asarray(read._record_ids, dtype=np.int64)
+        self._list_flat.append(ids)
+        self._list_counts.append(ids.size)
+        self._fold_single(code, ids)
+
+    def _fold_single(self, code: int, record_ids: np.ndarray) -> None:
+        """Fold one read into the totals: its list position is its order
+        key, its batch the next one."""
+        if code == 1:
+            self._n_unique += 1
+        elif code == 2:
+            self._n_ambiguous += 1
+        else:
+            self._n_unmapped += 1
+        if code != 0:
+            np.add.at(self._amb_by_rec if code == 2 else self._unique_by_rec,
+                      record_ids, 1)
+            for pos, r in enumerate(record_ids):
+                if self._first_batch[r] == _INF:
+                    self._first_batch[r] = self._batch_no
+                    self._first_key[r] = pos
+        self._batch_no += 1
+
+    def add_read_from_read_record(
+        self,
+        read_record: SeqRecord,
+        m: int = 1,
+        p: int = 1,
+        min_read_quality: Optional[int] = None,
+        min_kmer_quality: Optional[int] = None,
+        max_genomes: Optional[int] = None,
+    ) -> None:
+        """Align one record on the host (``Read.pseudo_align``) and add
+        it; an MRQ-filtered read is counted, not stored."""
+        if min_read_quality is not None:
+            self.filter_read_quality_flag = True
+        if min_kmer_quality is not None:
+            self.filter_kmer_quality_flag = True
+        if max_genomes is not None:
+            self.filter_max_genomes_flag = True
+        read = Read(read_record)
+        if min_read_quality is not None and read.mean_quality() < min_read_quality:
+            self.filtered_quality_reads += 1
+            return
+        read.pseudo_align(self.kmer_reference, m=m, p=p,
+                          min_read_quality=min_read_quality,
+                          min_kmer_quality=min_kmer_quality,
+                          max_genomes=max_genomes)
+        if min_kmer_quality is not None:
+            self.filtered_quality_kmers += read.num_quality_filtered_kmers
+        if max_genomes is not None:
+            self.filtered_hr_kmers += read.num_redundant_kmers
+        self.add_read(read)
+
     # -- device runs ----------------------------------------------------------
 
     def _check_args(self, m, p, min_read_quality, min_kmer_quality,
                     max_genomes) -> None:
-        """Validate m and p, and record which gates the summary reports."""
+        """Validate m and p, and the MKQ gate's k, and record which gates
+        the summary reports."""
         if not isinstance(m, int) or not isinstance(p, int):
             raise TypeError("m and p must be ints")
         if m < 0:
             raise UserInputError("m must be bigger than or equal to 0")
+        k = self.kmer_reference.index.k
+        if min_kmer_quality is not None and k < 0:
+            # a window of k < 0 bases has no quality sum (the JAX package
+            # fails here too)
+            raise UserInputError(f"--min-kmer-quality needs k >= 0, got k={k}")
         if min_read_quality is not None:
             self.filter_read_quality_flag = True
         if min_kmer_quality is not None:
@@ -230,27 +482,31 @@ class PseudoAlignment:
         carry has been fetched)."""
         ref = self.kmer_reference
         k = ref.index.k
-        probe_tab = ref.device_probe_tables(self.device)
         member = ref.set_member_device(self.device)
         use_qual = min_read_quality is not None or min_kmer_quality is not None
+        mrq, has_mrq = min_read_quality or 0, min_read_quality is not None
+        if k >= 1:
+            probe_tab = ref.device_probe_tables(self.device)
+
+            def batch_fn(codes, qual, lengths):
+                return align_batch(
+                    probe_tab, member, codes, qual, lengths,
+                    m, p, mrq, min_kmer_quality or 0, max_genomes or 0,
+                    k=k, has_mrq=has_mrq, has_mkq=min_kmer_quality is not None,
+                    has_mg=max_genomes is not None)
+        else:
+            def batch_fn(codes, qual, lengths):
+                # a read has no k-mer: no window to encode or probe
+                return unmapped_batch(member.shape[1], qual, lengths, mrq,
+                                      has_mrq=has_mrq)
         carry = init_fold_carry(member.shape[1], self.device,
                                 start_batch=self._batch_no)
         n_batches = 0
         lists: List[StoreLists] = []
         for codes_p, qual, lengths, got in chunks:
             lengths_d = self._upload(lengths)
-            res = align_batch(
-                probe_tab, member,
-                self._upload(codes_p),
-                self._upload(qual) if use_qual else None,
-                lengths_d,
-                m, p, min_read_quality or 0, min_kmer_quality or 0,
-                max_genomes or 0,
-                k=k,
-                has_mrq=min_read_quality is not None,
-                has_mkq=min_kmer_quality is not None,
-                has_mg=max_genomes is not None,
-            )
+            res = batch_fn(self._upload(codes_p),
+                           self._upload(qual) if use_qual else None, lengths_d)
             # zero-length rows are the tail padding of the final chunk
             # (the FASTQ grammar requires a nonempty sequence line)
             carry = _fold_agg(carry, aggregate_batch(res, lengths_d > 0))
@@ -334,14 +590,34 @@ class PseudoAlignment:
         batch_size: int = 1024,
         store_reads: bool = True,
     ) -> None:
-        """Align parsed records (the regex-engine fallback route): packed
-        on the host into the same chunks the stream yields; the store's
-        ids are the records' own."""
-        self._check_args(m, p, min_read_quality, min_kmer_quality, max_genomes)
+        """Align parsed records (the regex-engine fallback route) through
+        ``align_packed_reads``."""
         if hasattr(reads_container, "to_read_batch"):
             batch = reads_container.to_read_batch()
         else:
             batch = pack_reads(list(reads_container))
+        self.align_packed_reads(batch, m, p, min_read_quality, min_kmer_quality,
+                                max_genomes, batch_size, store_reads)
+
+    def align_packed_reads(
+        self,
+        batch: ReadBatch,
+        m: int = 1,
+        p: int = 1,
+        min_read_quality: Optional[int] = None,
+        min_kmer_quality: Optional[int] = None,
+        max_genomes: Optional[int] = None,
+        batch_size: int = 1024,
+        store_reads: bool = True,
+        mesh=None,
+    ) -> None:
+        """Align a packed ``ReadBatch`` on this alignment's device: packed
+        on the host into the chunks the stream yields; the store's ids are
+        the batch's own.  ``mesh`` (reads sharded over devices) is not
+        ported yet."""
+        if mesh is not None:
+            raise not_ported("align_packed_reads over a mesh (multi-device runs)", 5)
+        self._check_args(m, p, min_read_quality, min_kmer_quality, max_genomes)
         n = batch.num_reads
         b = batch_size or _auto_batch(n)
         lpad = _lpad(batch.max_len, self.kmer_reference.index.k)

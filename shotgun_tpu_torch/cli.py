@@ -7,8 +7,9 @@ validation, defaulting quirks, error strings and exit codes, and its
 files (``.kdb``, ``.aln``).  Databases are built on the host, except for
 ``dumpalign -g``, which builds on the device for genomes of 4-64 Mbp as
 the JAX package's does (``dumpalign_reference``): only dumpalign never
-needs the host postings.  k > 31 exits non-zero with "not yet ported"
-where a probe is needed.
+needs the host postings.  Any k >= 1 aligns (k > 31 by the sort join of
+multi-word keys); at k < 1 no read maps.  A multi-process dumpalign
+(``SHOTGUN_TPU_NPROCS`` > 1) exits non-zero with "not yet ported".
 
 The device comes from ``$SHOTGUN_TPU_TORCH_DEVICE`` (default ``cuda``;
 asking for CUDA without it is an error, never a silent CPU run).
@@ -45,7 +46,12 @@ from shotgun_tpu_torch.aligner import (
     NotValidatingUniqueMapping,
     PseudoAlignment,
 )
-from shotgun_tpu_torch.reference import PROBE_ENV, KDBFormatError, KmerReference
+from shotgun_tpu_torch.reference import (
+    PROBE_ENV,
+    KDBFormatError,
+    KmerReference,
+    not_ported,
+)
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.profiling import PROFILER, phase
 
@@ -266,9 +272,20 @@ def _validate_task(args: argparse.Namespace) -> None:
         sys.exit("Error: Unsupported task.")
 
 
+def _refuse_multi_process() -> None:
+    """dumpalign reads ``SHOTGUN_TPU_NPROCS`` as the JAX package's does
+    (its ``parallel/distributed.py initialize_from_env``); more than one
+    process is not ported yet, and each process would print a summary."""
+    nprocs = os.environ.get("SHOTGUN_TPU_NPROCS")
+    if nprocs and int(nprocs) > 1:
+        raise not_ported(f"SHOTGUN_TPU_NPROCS={nprocs} (multi-process runs)", 5)
+
+
 def _run_task(args: argparse.Namespace, device: torch.device) -> None:
     gates = (args.unique_threshold, args.ambiguous_threhold,
              args.min_read_quality, args.min_kmer_quality, args.max_genomes)
+    if args.task == "dumpalign":
+        _refuse_multi_process()
     if args.task == "reference":
         validate_file_readable(args.genomefile, "Genome FASTA")
         validate_file_writable(args.referencefile, "Reference database output")

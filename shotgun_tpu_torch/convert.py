@@ -36,18 +36,28 @@ def _keys(klo, khi) -> np.ndarray:
 def sorted_table(tab, device: torch.device) -> probe_sort.SortedTableDev:
     """A JAX ``SortedTableDev`` -> the port's, without its dead rows
     (``gc == 0``: shape-bucket pads and invalid device-build windows)."""
-    return probe_sort.sorted_table(_keys(tab.klo, tab.khi), np.array(tab.sid),
+    return probe_sort.sorted_table((_keys(tab.klo, tab.khi),), np.array(tab.sid),
                                    np.array(tab.gc), device)
+
+
+def sorted_table_words(tab, k: int, device: torch.device) -> probe_sort.SortedTableDev:
+    """A JAX ``SortedTableDevW`` (uint32 key words, most significant
+    first) of k-mers -> the port's, without its pad rows (``gc == 0``)."""
+    words_u32 = np.stack([np.asarray(w) for w in tab.kws[::-1]], axis=1)
+    return probe_sort.sorted_table(
+        probe_sort.key_words_from_u32(words_u32, k), np.array(tab.sid),
+        np.array(tab.gc), device)
 
 
 def device_build(built: dict, device: torch.device) -> dict:
     """A JAX ``device_build_tables`` dict -> the port's: live rows only
     and one row per distinct key (the JAX table keeps one per window)."""
-    tab = probe_sort.sorted_table(_keys(built["klo"], built["khi"]),
+    tab = probe_sort.sorted_table((_keys(built["klo"], built["khi"]),),
                                   np.array(built["sid"]), np.array(built["gc"]), device)
-    first = torch.ones_like(tab.keys, dtype=torch.bool)
-    first[1:] = tab.keys[1:] != tab.keys[:-1]
-    return dict(keys=tab.keys[first], sid=tab.sid[first], gc=tab.gc[first],
+    (keys,) = tab.words
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    return dict(keys=keys[first], sid=tab.sid[first], gc=tab.gc[first],
                 num_kmers=int(built["num_kmers"]), num_sets=int(built["num_sets"]),
                 set_masks=np.asarray(built["set_masks"]),
                 num_records=int(built["num_records"]),

@@ -1,11 +1,13 @@
 """Batched pseudo-alignment on the device (counterpart of
-``shotgun_tpu/models/pipeline.py``, k <= 31).
+``shotgun_tpu/models/pipeline.py``).
 
 Per batch of 2-bit packed reads, all on the device:
 
-  1. unpack + rolling k-mer encode (+ MKQ window sums)  kernel H1
-  2. probe, by the table's type: the bucket hash (kernel H2) or the sort
-     join (``ops/probe_sort2.py``, which also does step 5)
+  1. unpack + rolling k-mer encode (+ MKQ window sums)  kernel H1; at
+     k > 31 the multi-word keys, composed from two H1 launches
+  2. probe, by the table's type: the bucket hash (kernel H2, k <= 31) or
+     the sort join over the key words (``ops/probe_sort2.py``, which also
+     does step 5)
   3. integer quality gates: MRQ read gate, MKQ window gate
   4. max-genomes gate
   5. first-occurrence dedupe of k-mer values within a read
@@ -32,10 +34,10 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from shotgun_tpu_torch.ops.encode import encode_window, window_quality_sums
+from shotgun_tpu_torch.ops.encode import encode_window, encode_words, window_quality_sums
 from shotgun_tpu_torch.ops.probe import HashTableDev, probe_kmers
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
-from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted
+from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted_words
 
 BIG = 0x3FFFFFFF
 FOLD_INF = 0x7FFFFFFF
@@ -107,6 +109,15 @@ def _record_counts(sid, spec_w, first_occ, member):
     return spec_counts, total_counts, fw_spec, fw_total
 
 
+def _read_filtered(qual: Optional[torch.Tensor], lengths: torch.Tensor, mrq: int,
+                   has_mrq: bool) -> torch.Tensor:
+    """[B] mask of the reads whose mean quality is below ``mrq`` (the
+    exact integer form of the raw-ord mean; pads are 0)."""
+    if not has_mrq:
+        return torch.zeros(lengths.shape, dtype=torch.bool, device=lengths.device)
+    return qual.to(torch.int64).sum(dim=1) < mrq * lengths.to(torch.int64)
+
+
 def core_from_probe(
     probe_res: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
     set_member: torch.Tensor,       # bool/uint8 [S, R]
@@ -141,11 +152,7 @@ def core_from_probe(
     valid = w_iota < (lens - (k - 1))[:, None]
 
     # ---- quality gates (exact integer forms of raw-ord means) ----
-    if has_mrq:
-        total_q = qual.to(torch.int64).sum(dim=1)  # pads are 0
-        read_filtered = total_q < mrq * lens.to(torch.int64)
-    else:
-        read_filtered = torch.zeros((b,), dtype=torch.bool, device=dev)
+    read_filtered = _read_filtered(qual, lengths, mrq, has_mrq)
     if has_mkq:
         if qsum is None:
             qsum = window_quality_sums(qual, k)
@@ -430,21 +437,44 @@ def align_batch(
     has_mkq: bool,
     has_mg: bool,
 ) -> BatchResult:
-    """Encode + probe + classify one batch, the probe chosen by the
-    table's type (the JAX package's ``align_batch_core``)."""
-    keys, qsum = encode_window(codes, k, qual if has_mkq else None)
-    first_occ = None
+    """Encode + probe + classify one batch (k >= 1), the probe chosen by
+    the table's type (the JAX package's ``align_batch_core``)."""
     if isinstance(probe_tab, SortedTableDev):
-        query_ok = _window_ok(None, lengths, k, keys.shape[1], mkq, has_mkq,
+        words, qsum = encode_words(codes, k, qual if has_mkq else None)
+        query_ok = _window_ok(None, lengths, k, words[0].shape[1], mkq, has_mkq,
                               qsum=qsum)
-        hit, sid, gc, first_occ = probe_dedupe_sorted(probe_tab, keys, query_ok)
+        hit, sid, gc, first_occ = probe_dedupe_sorted_words(probe_tab, words, query_ok)
         probe_res = (hit, sid, gc, None)
     else:
-        probe_res = probe_kmers(probe_tab.table, probe_tab.stash, keys)
+        keys, qsum = encode_window(codes, k, qual if has_mkq else None)
+        probe_res, first_occ = probe_kmers(probe_tab.table, probe_tab.stash, keys), None
     return core_from_probe(
         probe_res, set_member, qual, lengths, m, p, mrq, mkq, mg,
         k=k, has_mrq=has_mrq, has_mkq=has_mkq, has_mg=has_mg, qsum=qsum,
         pre_first_occ=first_occ)
+
+
+def unmapped_batch(
+    r: int,
+    qual: Optional[torch.Tensor],    # uint8 [B, L] when the MRQ gate is on
+    lengths: torch.Tensor,           # int32 [B]
+    mrq: int,
+    *,
+    has_mrq: bool,
+) -> BatchResult:
+    """One batch at k < 1, where a read has no k-mer (the index is empty):
+    every read that passes the MRQ gate is unmapped, and no window is
+    counted by a k-mer gate."""
+    b = lengths.shape[0]
+    dev = lengths.device
+    zeros = torch.zeros((b,), dtype=_I32, device=dev)
+    return BatchResult(
+        mtype=zeros, winner=zeros,
+        downgraded=torch.zeros((b,), dtype=torch.bool, device=dev),
+        amb_mask=torch.zeros((b, r), dtype=torch.bool, device=dev),
+        fw_sel=torch.full((b, r), BIG, dtype=_I32, device=dev),
+        read_filtered=_read_filtered(qual, lengths, mrq, has_mrq),
+        n_qual_kmers=zeros, n_hr_kmers=zeros)
 
 
 def align_fold_batch(

@@ -189,6 +189,86 @@ def rolling_encode(packed: torch.Tensor, k: int) -> torch.Tensor:
     return encode_window(packed, k)[0]
 
 
+# --- multi-word keys, any k (the JAX package's rolling_encode_words_jnp) -----
+#
+# A k-mer of any k is ceil(k / 31) int64 words, most significant first: full
+# word j holds bases [31j, 31j + 31) of the window, and a tail word the last
+# k mod 31 bases when there are any.  Each word is a base-4 number of at most
+# 62 bits, so comparing the word tuples lexicographically is comparing the
+# k-mers (and their 2k-bit keys).  Full word j of window w is the 31-mer key
+# at position w + 31j and the tail word the (k mod 31)-mer key at position
+# w + 31 * (k // 31): one H1 launch at k = 31 and one at k mod 31 give every
+# word as a slice, and their window sums at the same offsets add up to the
+# k-window's sum.  H1 itself stays at k <= 31: a block stages H1_SPAN
+# positions and owns the windows of the first H1_SPAN - 64, so no window may
+# reach more than 64 positions past its start.
+
+#: bases in a word of a multi-word key
+WORD_BASES = MAX_K
+
+
+def word_spans(k: int) -> list:
+    """[(first base, bases)] of each word of a k-mer, most significant
+    first."""
+    spans = [(s, WORD_BASES) for s in range(0, k - WORD_BASES + 1, WORD_BASES)]
+    if k % WORD_BASES:
+        spans.append((k - k % WORD_BASES, k % WORD_BASES))
+    return spans
+
+
+def encode_words_plain(
+    packed: torch.Tensor, k: int, qual: Optional[torch.Tensor] = None,
+) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
+    """Plain PyTorch version of ``encode_words``: each word rolled from
+    the unpacked codes, the sums from a cumulative sum at k."""
+    codes = unpack_codes_2bit(packed)
+    w = codes.shape[1] - k + 1
+    words = tuple(rolling_encode_plain(codes[:, s: s + n + w - 1], n)
+                  for s, n in word_spans(k))
+    qsums = window_quality_sums_plain(qual, k) if qual is not None else None
+    return words, qsums
+
+
+def words_from_h1(
+    packed: torch.Tensor, k: int, qual: Optional[torch.Tensor] = None,
+) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
+    """``encode_words`` composed from ``encode_window`` at k = 31 and at
+    k mod 31 (kernel H1 for CUDA tensors): the words are slices of its
+    keys, the sums a sum of its sums at the words' offsets."""
+    w = packed.shape[1] * 4 - k + 1
+    out = {n: encode_window(packed, n, qual)
+           for n in {n for _, n in word_spans(k)}}
+    words = tuple(out[n][0][:, s: s + w] for s, n in word_spans(k))
+    qsums = None
+    if qual is not None:
+        parts = [out[n][1][:, s: s + w] for s, n in word_spans(k)]
+        qsums = parts[0]
+        for part in parts[1:]:
+            qsums = qsums + part
+    return words, qsums
+
+
+def encode_words(
+    packed: torch.Tensor, k: int, qual: Optional[torch.Tensor] = None,
+) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
+    """Multi-word window keys of any k >= 1: packed codes [B, L/4] u8 and
+    optionally qual [B, L] u8 -> (ceil(k / 31) int64 [B, W] words, most
+    significant first; qsums int32 [B, W] or None), W = L - k + 1.
+
+    A CUDA tensor takes ``words_from_h1`` (two H1 launches, one when k is
+    at most 31 or a multiple of 31); a CPU tensor ``encode_words_plain``."""
+    if k < 1:
+        raise ValueError(f"encode_words supports k >= 1, got {k}")
+    _check_u8_2d(packed, "packed")
+    if packed.shape[1] * 4 < k:
+        raise ValueError(f"batch length {packed.shape[1] * 4} must be >= k={k}")
+    if packed.device.type == "cpu":
+        if qual is not None and qual.device != packed.device:
+            raise ValueError("packed and qual must be on one device")
+        return encode_words_plain(packed, k, qual)
+    return words_from_h1(packed, k, qual)
+
+
 def window_quality_sums(qual: torch.Tensor, k: int) -> torch.Tensor:
     """[B, L] uint8 quality -> [B, W] int32 window sums (kernel H1 on CUDA)."""
     return encode_window(None, k, qual)[1]

@@ -1,6 +1,6 @@
 """``KmerReference`` for the port: the k-mer database facade over
 ``index.build``'s ``KmerIndex`` (counterpart of
-``shotgun_tpu/reference.py``, all but the single-k-mer lookups).
+``shotgun_tpu/reference.py``), with the reference's single-k-mer lookups.
 
 Built on the host (``build_index``: native C++ for k <= 31, numpy for
 any k; EXTSIM's overlap matrix on the device from 256 genome
@@ -8,11 +8,11 @@ identifiers, ``index/extsim.py``), loaded from and saved to the JAX
 package's ``.kdb`` npz container, or built on the device
 (``from_device_build``: it aligns, but has no host k-mer arrays to save
 or dump), and turned into device probe tables.  ``write_summary`` streams
-the dumpref JSON.  ``auto`` picks the sort join (``sort``) up to
-``AUTO_HASH_MIN_KEYS`` distinct k-mers and the 16-slot ``hash16`` table
-above, as the JAX package does; ``hash`` is the 4-slot table.  k > 31
-raises ``NotImplementedError``; nothing substitutes another probe
-quietly.
+the dumpref JSON.  The probe routes are the JAX package's: at k <= 31
+``auto`` picks the sort join (``sort``) up to ``AUTO_HASH_MIN_KEYS``
+distinct k-mers and the 16-slot ``hash16`` table above, and ``hash`` (or
+any other value) is the 4-slot table; at k > 31 every route is the sort
+join of multi-word keys, and ``hash`` raises.
 """
 
 from __future__ import annotations
@@ -24,13 +24,20 @@ from typing import Any, Dict, Iterable, List, Optional, Set, Union
 import numpy as np
 import torch
 
+from shotgun_tpu_torch.constants import BASE_CODE_LUT, BASE_N
 from shotgun_tpu_torch.errors import UserInputError
-from shotgun_tpu_torch.index.build import KmerIndex, build_index
+from shotgun_tpu_torch.index.build import (
+    KmerIndex,
+    build_index,
+    num_key_words,
+    sort_keys_from_words,
+)
 from shotgun_tpu_torch.io.packing import GenomeArrays, pack_genomes
 from shotgun_tpu_torch.io.records import SeqRecord
 from shotgun_tpu_torch.index.device_build import device_build_tables, device_hash_table
 from shotgun_tpu_torch.index.extsim import apply_similarity_filter
 from shotgun_tpu_torch.index.hashtable import ProbeTable, build_probe_table
+from shotgun_tpu_torch.models.pipeline import DeviceTable
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table, sorted_table_host
 from shotgun_tpu_torch.utils.device import resolve_device
@@ -43,10 +50,22 @@ class KDBFormatError(Exception):
     reference's 'Error: Incorrect format of input file.' message)."""
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to shotgun_tpu_torch "
         f"(ROADMAP.md, Queue 1 item {item})")
+
+
+def reverse_complement(seq: str) -> str:
+    """Reverse complement of a nucleotide string (reference kmer.py:96-103)."""
+    return seq.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+
+def extract_kmers_from_genome(k: int, genome: str):
+    """Iterate (position, k-mer) windows (reference kmer.py:84-94)."""
+    if k > len(genome) or k <= 0:
+        return iter([])
+    return ((i, genome[i: i + k]) for i in range(len(genome) - k + 1))
 
 
 _BASE_ASCII = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -122,6 +141,10 @@ class KmerReference:
         self.device = resolve_device(device)
         if filter_similar and not (0 <= similarity_threshold <= 1):
             raise UserInputError("similarity_threshold must be between 0 and 1")
+        # the genome records of the single-read API: a parsed container's,
+        # or the records given, materialized on first use
+        self._container = None
+        self._records: Optional[List[SeqRecord]] = None
         if _index is not None:
             self.index = _index
         else:
@@ -129,15 +152,17 @@ class KmerReference:
                 genomes = fasta_record_container
             elif hasattr(fasta_record_container, "to_genome_arrays"):
                 genomes = fasta_record_container.to_genome_arrays()
+                self._container = fasta_record_container
             else:
-                genomes = pack_genomes(list(fasta_record_container))
+                self._records = list(fasta_record_container)
+                genomes = pack_genomes(self._records)
             self.index = build_index(genomes, k)
             if filter_similar:
                 self.index = apply_similarity_filter(
                     self.index, similarity_threshold, self.device)
         self._probe_tables: Dict[str, ProbeTable] = {}
         self._set_member_dense: Optional[np.ndarray] = None
-        self._device_tables: Dict[tuple, Union[HashTableDev, SortedTableDev]] = {}
+        self._device_tables: Dict[tuple, DeviceTable] = {}
         # device build products (from_device_build), and whether their
         # 16-slot hash table cannot be assembled
         self._built: Optional[dict] = None
@@ -182,6 +207,65 @@ class KmerReference:
     @property
     def similarity_info(self) -> Optional[Dict[str, Dict[str, Any]]]:
         return self.index.similarity_info
+
+    @property
+    def genomes(self) -> List[SeqRecord]:
+        """Kept genome records, input order (reference kmer.py:245-250)."""
+        recs = self._materialized_records()
+        return [recs[r] for r in range(self.index.num_records) if self.index.kept[r]]
+
+    def _materialized_records(self) -> List[SeqRecord]:
+        """The genome records; a reference read from a file or given
+        genome arrays holds none, and gets records of its descriptions
+        with empty genomes (as the JAX package's does)."""
+        if self._records is None:
+            if self._container is not None:
+                self._records = list(self._container.records)
+            else:
+                self._records = [SeqRecord([("description", d), ("genome", "")])
+                                 for d in self.index.descriptions]
+        return self._records
+
+    def _encode_query(self, kmer: str) -> Optional[int]:
+        """k-mer string -> k-mer id, or None on a miss or a non-ACGT base."""
+        self._require_host_index("k-mer lookups")
+        if len(kmer) != self.index.k:
+            return None
+        raw = np.frombuffer(kmer.encode("ascii", errors="replace"), dtype=np.uint8)
+        codes = BASE_CODE_LUT[raw]
+        if (codes >= BASE_N).any():
+            return None
+        val = 0
+        for c in codes:
+            val = (val << 2) | int(c)
+        qwords = np.asarray([(val >> (32 * j)) & 0xFFFFFFFF
+                             for j in range(num_key_words(self.index.k))],
+                            dtype=np.uint32)[None, :]
+        key = sort_keys_from_words(qwords)[0]
+        keys = self.index.sort_keys()
+        pos = int(np.searchsorted(keys, key))
+        if pos < keys.size and keys[pos] == key:
+            return pos
+        return None
+
+    def get_kmer_references(self, kmer: str) -> Dict[SeqRecord, Set[int]]:
+        """{genome record: positions} of one k-mer, {} when absent."""
+        kid = self._encode_query(kmer)
+        if kid is None:
+            return {}
+        recs = self._materialized_records()
+        return {recs[r]: set(int(x) for x in self.index.positions_of(kid, r))
+                for r in self.index.records_of_kmer(kid)}
+
+    def get_kmer_and_reverse_references(self, kmer: str) -> Dict[SeqRecord, Set[int]]:
+        """Merged references of a k-mer and its reverse complement
+        (reference kmer.py:331-351)."""
+        result = {rec: set(pos) for rec, pos in self.get_kmer_references(kmer).items()}
+        rev = reverse_complement(kmer)
+        if rev != kmer:
+            for rec, positions in self.get_kmer_references(rev).items():
+                result.setdefault(rec, set()).update(positions)
+        return result
 
     def _require_host_index(self, what: str) -> None:
         if isinstance(self.index, _DeviceIndexStub):
@@ -437,24 +521,33 @@ class KmerReference:
     def probe_method(self, method: Optional[str] = None) -> str:
         """'sort' (the sort join), 'hash' (4 slots) or 'hash16' (16
         slots); ``method`` defaults to $SHOTGUN_TPU_PROBE or 'auto'.
-        'auto' is 'hash16' above ``AUTO_HASH_MIN_KEYS`` distinct k-mers,
-        unless the device-built hash table could not be assembled, and
-        'sort' otherwise."""
+        The JAX package's routes (its ``reference.py:574-628``, ``:645``):
+        at k <= 31 'auto' is 'hash16' above ``AUTO_HASH_MIN_KEYS`` distinct
+        k-mers, unless the device-built hash table could not be assembled,
+        and 'sort' otherwise, and any value but 'sort' and 'hash16' is
+        'hash'.  At k > 31 every value but 'hash' is the sort join of
+        multi-word keys, and 'hash' raises."""
         method = method or os.environ.get(PROBE_ENV, "auto")
-        if self.index.k > 31:
-            raise _not_ported(
-                f"k={self.index.k} > 31 (multi-word keys)", 4)
+        k = self.index.k
+        if k > 31:
+            if method == "hash":
+                raise ValueError(
+                    "the bucketized hash probe supports k <= 31 only; "
+                    "use the sort-merge probe (SHOTGUN_TPU_PROBE=sort) for "
+                    f"k={k}")
+            return "sort"
         if method == "auto":
             big = (self.index.num_kmers > self.AUTO_HASH_MIN_KEYS
                    and not self._hash16_failed)
             return "hash16" if big else "sort"
-        if method not in ("sort", "hash", "hash16"):
-            raise UserInputError(
-                f"unknown probe method {method!r} (auto, sort, hash, hash16)")
-        return method
+        return method if method in ("sort", "hash16") else "hash"
 
     def probe_table(self, method: str = "hash") -> ProbeTable:
         """Host hash table: 4 slots for 'hash', 16 for 'hash16'."""
+        if self.index.k > 31:
+            raise ValueError(
+                "the bucketized hash table packs keys as (lo, hi) pairs "
+                f"and supports k <= 31 only (k={self.index.k})")
         if method not in self._probe_tables:
             idx = self.index
             self._probe_tables[method] = build_probe_table(
@@ -463,7 +556,7 @@ class KmerReference:
         return self._probe_tables[method]
 
     def device_probe_tables(self, device: torch.device, method: Optional[str] = None
-                            ) -> Union[HashTableDev, SortedTableDev]:
+                            ) -> DeviceTable:
         """The probe table on ``device``, made once.
 
         A device-built reference assembles its 16-slot table on the
@@ -492,8 +585,9 @@ class KmerReference:
         key = (method, str(device))
         if key not in self._device_tables:
             if method == "sort" and self._built is not None:
-                tab = SortedTableDev(*(self._built[c].to(device)
-                                       for c in ("keys", "sid", "gc")))
+                built = self._built
+                tab = SortedTableDev(words=(built["keys"].to(device),),
+                                     sid=built["sid"].to(device), gc=built["gc"].to(device))
             elif method == "sort":
                 tab = sorted_table(*sorted_table_host(self.index), device)
             else:

@@ -3,8 +3,9 @@ on one device, batch by batch.
 
     python -m shotgun_tpu_torch.tools.bench_sortjoin [--device cuda]
         [--keys 3300000 32000000] [--batch 32768] [--iters 20] [--seed 0]
+    python -m shotgun_tpu_torch.tools.bench_sortjoin --k 75
 
-For each table size: a key-sorted table of distinct random 62-bit keys,
+At k = 31 (the default), for each table size: a key-sorted table of distinct random 62-bit keys,
 and one batch of [B, W] window keys (W = 130: 150 bp reads on the
 stream's 160-base row stride, k = 31), half of them table keys, a tenth
 repeating an earlier window of their read, and 5% gated.  Each is timed
@@ -21,6 +22,15 @@ after one warm-up call:
   kernel H2 and the hash path's first-occurrence dedupe; its hits, set
   ids, genome counts and first occurrences must equal the join's.
 
+At ``--k`` above 31 (multi-word keys), on the card only: the strain panel
+of ``utils/synth.py`` (the one of ``chip_smoke.py`` phases 6 and 9), its
+host indexes at k and at 31, and one batch of its reads on the stream's
+row stride.  Timed: the word join (``probe_dedupe_sorted_words`` of
+ceil(k / 31) words) beside the k = 31 join of the same reads; the word
+join's outputs must equal its plain version's (the same batch through
+``encode_words_plain`` and the join on the CPU).  The encodes are not
+timed here: ``chip_smoke.py`` phase 4 times H1 and its composition.
+
 Times are means over ``--iters`` calls, by CUDA events on a CUDA device;
 elsewhere by the host clock, which is no device metric.  The last line is
 one JSON object of every number.
@@ -30,18 +40,23 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from shotgun_tpu_torch.aligner import _lpad
+from shotgun_tpu_torch.index.build import build_index
 from shotgun_tpu_torch.index.device_build import device_hash_table
-from shotgun_tpu_torch.models.pipeline import _first_occurrence
+from shotgun_tpu_torch.models.pipeline import _first_occurrence, _window_ok
+from shotgun_tpu_torch.ops.encode import encode_window, encode_words, pack_codes_2bit, word_spans
 from shotgun_tpu_torch.ops.probe import probe_kmers
-from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
-from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted
+from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table, sorted_table_host
+from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted, probe_dedupe_sorted_words
 from shotgun_tpu_torch.utils.device import resolve_device
+from shotgun_tpu_torch.utils.synth import READ_LEN, STRAIN_LEN, strain_panel, strain_reads
 
 #: windows per read: (160 - 31 + 1) on the stream's row stride
 WINDOWS = 130
@@ -72,9 +87,10 @@ def join_cummax(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor)
     found by ``torch.cummax`` over the table rows' indices (the first
     design; for comparison only).  Needs a non-empty table."""
     b, w = keys.shape
-    u = tab.keys.shape[0]
+    (tkeys,) = tab.words
+    u = tkeys.shape[0]
     qtag = torch.where(query_ok.reshape(-1), (keys.reshape(-1) << 1) | 1, -1)
-    sk, order = torch.sort(torch.cat([tab.keys << 1, qtag]), stable=True)
+    sk, order = torch.sort(torch.cat([tkeys << 1, qtag]), stable=True)
     is_table = order < u
     row = torch.cummax(torch.where(is_table, order, -1), 0).values
     run = sk >> 1
@@ -89,7 +105,7 @@ def join_cummax(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor)
 
     row, dup = restore(row), restore(dup)
     rowc = row.clamp(min=0)
-    hit = query_ok & (row >= 0) & (tab.keys[rowc] == keys)
+    hit = query_ok & (row >= 0) & (tkeys[rowc] == keys)
     return (hit, torch.where(hit, tab.sid[rowc], -1),
             torch.where(hit, tab.gc[rowc], 0), hit & ~dup)
 
@@ -123,26 +139,27 @@ def make_case(rng: np.random.Generator, u: int, b: int, device: torch.device):
            * torch.arange(WINDOWS, device=device)).long()
     keys = torch.where(rep, torch.gather(keys, 1, src), keys)
     query_ok = torch.from_numpy(rng.random((b, WINDOWS)) < 0.95).to(device)
-    return SortedTableDev(tkeys, sid, gc), keys, query_ok
+    return SortedTableDev((tkeys,), sid, gc), keys, query_ok
 
 
 def bench(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor,
           iters: int, device: torch.device) -> dict:
     """Times and equality checks of one table size (see the module doc)."""
-    u = tab.keys.numel()
+    (tkeys,) = tab.words
+    u = tkeys.numel()
     res: dict = {"keys": u, "batch": list(keys.shape)}
     want = probe_dedupe_sorted(tab, keys, query_ok)
     names = ("hit", "sid", "gc", "first_occ")
     res["cummax_equal"] = all(torch.equal(g, x) for g, x in
                               zip(join_cummax(tab, keys, query_ok), want))
-    ht =device_hash_table(dict(keys=tab.keys, sid=tab.sid, gc=tab.gc,
+    ht = device_hash_table(dict(keys=tkeys, sid=tab.sid, gc=tab.gc,
                                 num_kmers=u, num_windows=u))
     if ht is None:
         raise RuntimeError("the 16-slot table of the benchmark rows was refused")
     got = hash16_join(*ht, keys, query_ok)
     res["hash16_equal"] = {n: torch.equal(g, x) for n, g, x in zip(names, got, want)}
 
-    tagged = torch.cat([tab.keys << 1, torch.where(
+    tagged = torch.cat([tkeys << 1, torch.where(
         query_ok.reshape(-1), (keys.reshape(-1) << 1) | 1, -1)])
     sk, order = torch.sort(tagged, stable=True)
     is_table = order < u
@@ -162,6 +179,52 @@ def bench(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor,
     return res
 
 
+def word_case(rng: np.random.Generator, k: int, genome_len: int, batch: int) -> dict:
+    """The strain panel's host indexes at k and at 31 and one batch of its
+    reads (packed codes, lengths), on the host."""
+    genomes = strain_panel(rng, genome_len)
+    work = strain_reads(rng, genomes, batch)
+    codes = np.zeros((batch, _lpad(READ_LEN, k)), dtype=np.uint8)
+    codes[:, :READ_LEN] = work.codes
+    t0 = time.perf_counter()
+    index = build_index(genomes, k)
+    return {"index": index, "build_s": time.perf_counter() - t0,
+            "index_31": build_index(genomes, 31),
+            "packed": torch.from_numpy(pack_codes_2bit(codes)),
+            "lengths": torch.full((batch,), READ_LEN, dtype=torch.int32)}
+
+
+def word_steps(case: dict, device: torch.device) -> tuple:
+    """(the timed steps by name, the word join's outputs) on ``device``:
+    the join at k and the join at 31."""
+    k = case["index"].k
+    tab = sorted_table(*sorted_table_host(case["index"]), device)
+    tab31 = sorted_table(*sorted_table_host(case["index_31"]), device)
+    packed, lengths = case["packed"].to(device), case["lengths"].to(device)
+    words, _ = encode_words(packed, k)
+    keys, _ = encode_window(packed, 31)
+    ok = _window_ok(None, lengths, k, words[0].shape[1], 0, False)
+    ok31 = _window_ok(None, lengths, 31, keys.shape[1], 0, False)
+    steps = {"word_join": lambda: probe_dedupe_sorted_words(tab, words, ok),
+             "join_k31": lambda: probe_dedupe_sorted(tab31, keys, ok31)}
+    return steps, probe_dedupe_sorted_words(tab, words, ok)
+
+
+def bench_words(k: int, genome_len: int, batch: int, iters: int, seed: int,
+                device: torch.device) -> dict:
+    """Times and the plain-version check of ``--k`` > 31 (module doc)."""
+    case = word_case(np.random.default_rng(seed), k, genome_len, batch)
+    steps, got = word_steps(case, device)
+    _, want = word_steps(case, torch.device("cpu"))
+    names = ("hit", "sid", "gc", "first_occ")
+    return {"k": k, "words": len(word_spans(k)), "batch": list(got[0].shape),
+            "table_rows": case["index"].num_kmers,
+            "table_rows_k31": case["index_31"].num_kmers,
+            "host_build_s": case["build_s"], "hits": int(got[0].sum()),
+            "plain_equal": {n: torch.equal(g.cpu(), w) for n, g, w in zip(names, got, want)},
+            "ms": {name: time_ms(fn, iters, device) for name, fn in steps.items()}}
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
@@ -171,7 +234,28 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--batch", type=int, default=32768, help="reads per batch")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k", type=int, default=31,
+                    help="above 31: the strain panel's word join against its k = 31 "
+                         "join, on the card")
     args = ap.parse_args(argv)
+
+    if args.k > 31:
+        if not torch.cuda.is_available():
+            print("bench_sortjoin: --k above 31 needs the card; "
+                  "torch.cuda.is_available() is false", file=sys.stderr)
+            raise SystemExit(1)
+        device = torch.device("cuda", 0)
+        res = bench_words(args.k, STRAIN_LEN, args.batch, args.iters, args.seed, device)
+        out = {"device": str(device), "card": torch.cuda.get_device_name(device),
+               "timer": "cuda events", "runs": [res]}
+        print(f"k={args.k}: {res['table_rows']} table rows ({res['table_rows_k31']} at "
+              f"k=31), batch {res['batch']}, host build {res['host_build_s']:.3f} s: "
+              + ", ".join(f"{name} {ms:.3f} ms" for name, ms in res["ms"].items())
+              + f"; equal to the plain version {res['plain_equal']}", flush=True)
+        print(json.dumps(out), flush=True)
+        if not all(res["plain_equal"].values()):
+            raise SystemExit("bench_sortjoin: the word join differs from its plain version")
+        return out
 
     device = resolve_device(args.device)
     out: dict = {"device": str(device), "timer": (

@@ -241,8 +241,10 @@ def _run(args, device, genomes, work, res: dict, say) -> None:
         _sync(device)
         res["table_s"] = time.perf_counter() - t0
         method = ref.probe_method()
+        # a sort table holds a tuple of key words beside its columns
+        tensors = [x for t in tab for x in (t if isinstance(t, tuple) else (t,))]
         res.update(probe_used=method, distinct_kmers=int(ref.index.num_kmers),
-                   table_bytes=sum(t.numel() * t.element_size() for t in tab))
+                   table_bytes=sum(t.numel() * t.element_size() for t in tensors))
         say(f"db build ({'device' if args.device_build else 'host'}) "
             f"{res['db_build_s']:.3f} s, {method} table on the device "
             f"{res['table_s']:.3f} s: {res['distinct_kmers']} distinct k-mers, "

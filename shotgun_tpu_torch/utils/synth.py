@@ -13,17 +13,28 @@ their k-mers, and ``error_rate`` puts substitutions into the reads.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
 from shotgun_tpu_torch.io.packing import GenomeArrays, ReadBatch
 
 __all__ = ["GenomeArrays", "Workload", "make_genomes", "sample_reads",
-           "synth_genomes", "synth_reads", "to_fasta", "to_fastq",
-           "write_fastq", "write_workload"]
+           "strain_panel", "strain_reads", "synth_genomes", "synth_reads",
+           "to_fasta", "to_fastq", "write_fastq", "write_workload"]
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+#: the strain panel of ``chip_smoke.py`` and the benchmarks: STRAIN_GENOMES
+#: genomes, round-robin copies of STRAIN_ANCESTORS random ancestors of
+#: STRAIN_LEN bases with every base substituted at MUTATION_RATE; its reads
+#: are READ_LEN bases with substitutions at ERROR_RATE
+STRAIN_GENOMES = 32
+STRAIN_ANCESTORS = 8
+STRAIN_LEN = 200_000
+MUTATION_RATE = 0.01
+READ_LEN = 150
+ERROR_RATE = 0.005
 
 
 def synth_genomes(rng: np.random.Generator, n_genomes: int, length: int
@@ -112,14 +123,27 @@ def sample_reads(rng: np.random.Generator, genomes: GenomeArrays,
     return Workload(genomes, codes, gi)
 
 
-def write_fastq(path: str, codes: np.ndarray) -> None:
-    """One FASTQ record per row of ``codes``, every base at quality 'I'."""
+def strain_panel(rng: np.random.Generator, length: int = STRAIN_LEN) -> GenomeArrays:
+    """The strain panel's genomes (``length`` bases each)."""
+    return make_genomes(rng, STRAIN_GENOMES, length, STRAIN_ANCESTORS, MUTATION_RATE)
+
+
+def strain_reads(rng: np.random.Generator, genomes: GenomeArrays, n_reads: int
+                 ) -> Workload:
+    """``n_reads`` reads of the strain panel ``genomes``."""
+    return sample_reads(rng, genomes, n_reads, READ_LEN, ERROR_RATE)
+
+
+def write_fastq(path: str, codes: np.ndarray, qual: Optional[np.ndarray] = None) -> None:
+    """One FASTQ record per row of ``codes``, with the raw quality bytes of
+    that row of ``qual`` ([N, L] uint8), or every base at quality 'I'."""
     n, length = codes.shape
     seq = np.frombuffer(b"ACGT", dtype=np.uint8)[codes]
-    qual = b"I" * length
+    all_i = b"I" * length
     with open(path, "wb") as fh:
         for i in range(n):
-            fh.write(b"@read_%d\n%s\n+\n%s\n" % (i, seq[i].tobytes(), qual))
+            q = all_i if qual is None else qual[i].tobytes()
+            fh.write(b"@read_%d\n%s\n+\n%s\n" % (i, seq[i].tobytes(), q))
 
 
 def write_workload(work: Workload, fasta: str, fastq: str) -> None:

@@ -1,10 +1,11 @@
 """The port's CLI (python -m shotgun_tpu_torch) on the CPU: byte-identical
 stdout to every recorded golden (the 16 cases of tests/golden, dumpalign on
 every probe route and on the device database build, and the runlog cases
-the port runs), a .kdb written by the JAX package's CLI, the device-build
-gate, the error contracts of tests/test_cli.py, a guard that the port
-runs with jax and the JAX package unimportable, and the library entry
-points' default device."""
+at k = 31, 75 and 150), a .kdb written by the JAX package's CLI, the
+device-build gate, the probe routes at k > 31 and for unknown values, k < 1,
+the multi-process refusal, the error contracts of tests/test_cli.py, a
+guard that the port runs with jax and the JAX package unimportable, and the
+library entry points' default device."""
 
 import gzip
 import json
@@ -34,11 +35,11 @@ DUMPALIGN_CASES = ["plain", "m2", "m0", "p0", "p5", "pneg", "mrq", "mkq",
                    "mg0", "mg1", "mg2", "combo", "sim-align"]
 DUMPREF_CASES = ["dumpref", "dumpref-sim75", "dumpref-sim0"]
 RUNLOG = os.path.join(GOLDEN, "runlog")
-#: the runlog cases the port runs: every k = 31 case, and dumpref at any
-#: k (a host-side task); dumpalign at k = 75 and 150 is not ported
+#: the runlog cases: k = 31, and dumpref and dumpalign at k = 75 and 150
 RUNLOG_CASES = ["rl-dumpref-sim75-small-k31", "rl-small-k31-flags-m1p1",
                 "rl-small-k31-m5p1", "rl-dumpref-small-k75",
-                "rl-dumpref-small-k150"]
+                "rl-dumpref-small-k150", "rl-small-k75-m1p1",
+                "rl-small-k75-m5p5", "rl-mid-k150-flags", "rl-mid-k150-mg0"]
 
 with open(os.path.join(GOLDEN, "manifest.json")) as _fh:
     _MANIFEST = json.load(_fh)
@@ -86,7 +87,7 @@ def test_manifest_lists_every_dumpalign_case():
     assert sorted(DUMPALIGN_CASES) == sorted(
         n for n, c in _MANIFEST.items() if c["args"][1] == "dumpalign")
     assert sorted(DUMPALIGN_CASES + DUMPREF_CASES) == sorted(_MANIFEST)
-    assert set(RUNLOG_CASES) <= set(_RUNLOG_MANIFEST)
+    assert sorted(RUNLOG_CASES) == sorted(_RUNLOG_MANIFEST)
 
 
 @pytest.mark.parametrize("name", DUMPALIGN_CASES)
@@ -308,25 +309,136 @@ def test_bad_extension(tmp_path, capsys):
     assert "Invalid file extension" in msg
 
 
+K35 = ["-t", "dumpalign", "-g", FA, "-k", "35", "--reads", FQ]
+
+
+def _both(argv, capsys):
+    """(the port's stdout, the JAX CLI's) of one argv."""
+    cli.main(argv)
+    mine = capsys.readouterr().out
+    jax_cli.main(argv)
+    return mine, capsys.readouterr().out
+
+
 @pytest.mark.parametrize("env,expect", [
     ({"SHOTGUN_TPU_PROBE": "sort"}, "sort-join probe"),
     ({}, "k=35 > 31"),
 ])
 def test_unported_probes_raise(env, expect, monkeypatch, capsys):
-    """k > 31 is not ported yet.  The sort-join probe, which raised here
-    before it was ported, now gives the plain golden."""
+    """The probes that once raised here are ported: the sort join gives
+    the plain golden, and k = 35 (the sort join of multi-word keys) the
+    JAX CLI's stdout."""
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     if env:
         cli.main(_args("plain"))
         assert capsys.readouterr().out == _golden("plain")
         return
-    msg = _exit_message(capsys, ["-t", "dumpalign", "-g", FA, "-k", "35",
-                                 "--reads", FQ])
-    assert expect in msg and "not yet ported" in msg
+    mine, theirs = _both(K35, capsys)
+    assert mine == theirs and json.loads(mine)["Statistics"]["unique_mapped_reads"] > 0
 
 
-def test_filter_similar_at_256_genomes_is_not_ported(tmp_path, capsys):
+@pytest.mark.parametrize("probe", ["hash16", "sort", "bogus", ""])
+def test_k35_probe_values_take_the_word_join(probe, monkeypatch, capsys):
+    """At k > 31 every SHOTGUN_TPU_PROBE value but 'hash' takes the sort
+    join of multi-word keys, as in the JAX package: auto's stdout."""
+    cli.main(K35)
+    auto = capsys.readouterr().out
+    monkeypatch.setenv("SHOTGUN_TPU_PROBE", probe)
+    assert _both(K35, capsys) == (auto, auto)
+
+
+def test_k35_hash_probe_raises_jax_value_error(monkeypatch):
+    monkeypatch.setenv("SHOTGUN_TPU_PROBE", "hash")
+    msgs = []
+    for main in (cli.main, jax_cli.main):
+        with pytest.raises(ValueError) as exc:
+            main(K35)
+        msgs.append(str(exc.value))
+    assert msgs[0] == msgs[1] == (
+        "the bucketized hash probe supports k <= 31 only; use the sort-merge "
+        "probe (SHOTGUN_TPU_PROBE=sort) for k=35")
+    ref = KmerReference(35, FASTAFile(FA).container)
+    with pytest.raises(ValueError, match=r"supports k <= 31 only \(k=35\)"):
+        ref.probe_table()
+
+
+@pytest.mark.parametrize("probe", ["", "HASH", "bogus"])
+def test_unknown_probe_values_take_the_4_slot_hash(probe, monkeypatch, capsys):
+    """At k <= 31 a SHOTGUN_TPU_PROBE value outside auto|sort|hash|hash16
+    takes the 4-slot hash table, as in the JAX package."""
+    monkeypatch.setenv("SHOTGUN_TPU_PROBE", probe)
+    ref = KmerReference(11, FASTAFile(FA).container)
+    assert ref.probe_method() == "hash"
+    assert ref.device_probe_tables(torch.device("cpu")).table.shape[1] == 4
+    mine, theirs = _both(_args("plain"), capsys)
+    assert mine == theirs == _golden("plain")
+
+
+def _k_below_1(route, k, tmp_path, gate):
+    """The argv list of one route at k, each package with its own files:
+    dumpalign -g, reference then dumpalign -r, reference then align -r
+    then dumpalign -a."""
+    def argvs(tag):
+        kdb, aln = str(tmp_path / f"{tag}.kdb"), str(tmp_path / f"{tag}.aln")
+        ref = ["-t", "reference", "-g", FA, "-k", k, "-r", kdb]
+        if route == "-g":
+            return [["-t", "dumpalign", "-g", FA, "-k", k, "--reads", FQ] + gate]
+        if route == "-r":
+            return [ref, ["-t", "dumpalign", "-r", kdb, "--reads", FQ] + gate]
+        return [ref, ["-t", "align", "-r", kdb, "--reads", FQ, "-a", aln] + gate,
+                ["-t", "dumpalign", "-a", aln]]
+    return argvs("port"), argvs("jax")
+
+
+@pytest.mark.parametrize("gate", [[], ["--min-read-quality", "60"]], ids=["none", "mrq"])
+@pytest.mark.parametrize("route", ["-g", "-r", "align"])
+def test_k_below_1_maps_no_read_as_jax(route, gate, tmp_path, capsys):
+    """k < 1: the index is empty in both packages and every read that
+    passes the MRQ gate is unmapped; stdout byte-equal to the JAX CLI's."""
+    outs = []
+    for main, argvs in zip((cli.main, jax_cli.main), _k_below_1(route, "-3", tmp_path, gate)):
+        for argv in argvs:
+            main(argv)
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    stats = json.loads(outs[0])["Statistics"]
+    assert stats["unique_mapped_reads"] == stats["ambiguous_mapped_reads"] == 0
+    assert stats["unmapped_reads"] + stats.get("filtered_quality_reads", 0) == 50
+
+
+@pytest.mark.parametrize("route", ["-g", "-r", "align"])
+def test_k_below_1_with_mkq_fails_in_both_clis(route, tmp_path, capsys):
+    """With --min-kmer-quality at k < 1 the JAX CLI fails (a shape error
+    in its window sums); the port exits non-zero with a message that
+    names k."""
+    mine, theirs = _k_below_1(route, "-3", tmp_path, ["--min-kmer-quality", "20"])
+    fail = 0 if route == "-g" else 1  # the argv that aligns
+    for argv in mine[:fail]:
+        cli.main(argv)
+    msg = _exit_message(capsys, mine[fail])
+    assert "k=-3" in msg and "Traceback" not in msg
+    for argv in theirs[:fail]:
+        jax_cli.main(argv)
+    with pytest.raises(TypeError):
+        jax_cli.main(theirs[fail])
+
+
+@pytest.mark.parametrize("task", [["-t", "dumpalign", "-g", FA, "-k", "11", "--reads", FQ],
+                                  ["-t", "dumpalign", "-a", "x.aln"]])
+def test_multi_process_dumpalign_is_not_ported(task, monkeypatch, capsys):
+    """SHOTGUN_TPU_NPROCS > 1 (a multi-process dumpalign, where only the
+    first process may print) is refused, before any input is read;
+    NPROCS=1 is one process."""
+    monkeypatch.setenv("SHOTGUN_TPU_NPROCS", "2")
+    msg = _exit_message(capsys, task)
+    assert "SHOTGUN_TPU_NPROCS=2" in msg and "not yet ported" in msg
+    monkeypatch.setenv("SHOTGUN_TPU_NPROCS", "1")
+    cli.main(_args("plain"))
+    assert capsys.readouterr().out == _golden("plain")
+
+
+def test_filter_similar_at_256_genomes_matches_jax(tmp_path, capsys):
     """EXTSIM at 256 genome identifiers, where its overlap matrix runs on
     the device in both packages: the port's dumpalign equals the JAX
     CLI's, which runs its own XLA product there."""
@@ -373,23 +485,27 @@ with tempfile.TemporaryDirectory() as tmp:  # reference -> align -> dumpalign -a
     main(["-t", "reference", "-g", fa, "-k", "11", "-r", kdb])
     main(["-t", "align", "-r", kdb, "--reads", fq, "-a", aln])
     main(["-t", "dumpalign", "-a", aln])
+main(["-t", "dumpalign", "-g", fa, "-k", "35", "--reads", fq])  # multi-word keys
 loaded = [m for m, v in sys.modules.items() if v is not None and (
     m in ("jax", "jaxlib", "shotgun_tpu") or m.startswith(("jax.", "jaxlib.", "shotgun_tpu.")))]
 assert not loaded, loaded
 """
 
 
-def test_runs_with_jax_unimportable():
+def test_runs_with_jax_unimportable(capsys):
     """With jax and the JAX package unimportable, every port module and
     every import of chip_smoke.py loads, the native library is the
     port's own under build/host/, and the CLI prints the plain golden,
-    directly and through reference -> align -> dumpalign -a."""
+    directly and through reference -> align -> dumpalign -a, and the JAX
+    CLI's stdout at k = 35."""
+    jax_cli.main(K35)
+    k35 = capsys.readouterr().out
     env = dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cpu")
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX, FA, FQ] + _args("plain"),
         cwd=REPO, capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout == _golden("plain") * 2
+    assert out.stdout == _golden("plain") * 2 + k35
 
 
 ENTRY_POINTS = {

@@ -249,3 +249,71 @@ def test_h1_model_equals_pallas_at_the_kernel_span(k):
         np.testing.assert_array_equal(keys, _key64(lo, hi))
         np.testing.assert_array_equal(
             qsums, np.asarray(window_qsums_pallas(jnp.asarray(qual), k, interpret=True)))
+
+
+# --- multi-word keys (k > 31): the port's 31-base words against the JAX
+# package's 16-base words, each compared as the full key (a Python int)
+
+WORD_KS = [32, 35, 62, 63, 64, 75, 93, 150]
+
+
+def _full_keys_jax(kws) -> np.ndarray:
+    """JAX's key words (uint32, most significant first) -> [B, W] object
+    array of full keys."""
+    out = np.zeros(np.asarray(kws[0]).shape, dtype=object)
+    for w in kws:
+        out = (out << 32) | np.asarray(w).astype(np.int64).astype(object)
+    return out
+
+
+def _full_keys_port(words, k) -> np.ndarray:
+    """The port's words (int64, most significant first) -> full keys."""
+    out = np.zeros(tuple(words[0].shape), dtype=object)
+    for (_, bases), w in zip(tenc.word_spans(k), words):
+        out = (out << (2 * bases)) | w.numpy().astype(object)
+    return out
+
+
+@pytest.mark.parametrize("k", WORD_KS)
+def test_encode_words_matches_jnp_and_pallas_sums(k):
+    """``encode_words_plain`` equals ``rolling_encode_words_jnp`` as full
+    keys, and its sums ``window_quality_sums`` and ``window_qsums_pallas``
+    in interpret mode; the composition from H1's plain version
+    (``words_from_h1``, as the card runs it) equals it word for word."""
+    rng = np.random.default_rng(3000 + k)
+    b, l = 6, 4 * ((k + 40) // 4)
+    codes = _padded(rng, b, l, 0, 4)
+    codes[0, :k + 8] = 3   # all-T windows: at k = 64 the all-ones JAX key
+    qual = _padded(rng, b, l, 33, 127)
+    packed = torch.from_numpy(tenc.pack_codes_2bit(codes))
+    words, qsums = tenc.encode_words_plain(packed, k, torch.from_numpy(qual))
+    assert len(words) == -(-k // 31) and all(w.dtype == torch.int64 for w in words)
+    assert all(bool((w >= 0).all()) and bool((w >> 62 == 0).all()) for w in words)
+    want = _full_keys_jax(jenc.rolling_encode_words_jnp(jnp.asarray(codes), k))
+    np.testing.assert_array_equal(_full_keys_port(words, k), want)
+    assert want[0, 0] == (1 << (2 * k)) - 1
+    want_q = np.asarray(jenc.window_quality_sums(jnp.asarray(qual), k))
+    np.testing.assert_array_equal(qsums.numpy(), want_q)
+    np.testing.assert_array_equal(
+        np.asarray(window_qsums_pallas(jnp.asarray(qual), k, interpret=True)), want_q)
+    composed, composed_q = tenc.words_from_h1(packed, k, torch.from_numpy(qual))
+    for g, w in zip(composed, words):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    np.testing.assert_array_equal(composed_q.numpy(), qsums.numpy())
+
+
+def test_encode_words_on_cpu_takes_plain_and_checks_k():
+    rng = np.random.default_rng(8)
+    packed = torch.from_numpy(tenc.pack_codes_2bit(_padded(rng, 4, 96, 0, 4)))
+    before = tenc.encode_window.launches
+    words, qsums = tenc.encode_words(packed, 75)
+    assert tenc.encode_window.launches == before and qsums is None
+    assert [w.shape for w in words] == [(4, 22)] * 3
+    assert tenc.word_spans(75) == [(0, 31), (31, 31), (62, 13)]
+    assert tenc.word_spans(62) == [(0, 31), (31, 31)]
+    # at k <= 31 the one word is the single-key encode
+    np.testing.assert_array_equal(tenc.encode_words(packed, 21)[0][0].numpy(),
+                                  tenc.rolling_encode(packed, 21).numpy())
+    for k in (0, 97):
+        with pytest.raises(ValueError):
+            tenc.encode_words(packed, k)

@@ -2,10 +2,12 @@
 port's ``-t reference`` is byte-equal to the JAX CLI's, an ``.aln``
 written by its ``-t align`` equals the JAX CLI's member by member and
 byte for byte, and each package reads the other's files
-(``dumpalign -a``, ``dumpalign -r``, ``dumpref -r``)."""
+(``dumpalign -a``, ``dumpalign -r``, ``dumpref -r``), at k = 11, 31 and
+75."""
 
 import contextlib
 import io
+import json
 import os
 
 import numpy as np
@@ -105,6 +107,32 @@ def test_aln_equal_to_jax_at_k31(tmp_path, monkeypatch):
         fa=SMALL_FA, fq=SMALL_FQ, k="31")
     with open(mine, "rb") as a, open(theirs, "rb") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("gates", [[], ["--min-read-quality", "59", "--min-kmer-quality",
+                                         "60", "--max-genomes", "2"]],
+                         ids=["plain", "gates"])
+def test_reference_align_dumpalign_at_k75_equal_to_jax(gates, tmp_path, monkeypatch):
+    """Multi-word keys through the files: each package's reference ->
+    align -> dumpalign -a at k = 75 on the runlog panel; the .kdb and .aln
+    files and the stdout byte-equal, and dumpalign -a equal to dumpalign
+    -r --reads."""
+    monkeypatch.setenv("SHOTGUN_TPU_SUPERBATCH", "1")
+    outs, files = [], []
+    for tag, main in (("port", cli.main), ("jax", jax_cli.main)):
+        kdb, aln = str(tmp_path / f"{tag}.kdb"), str(tmp_path / f"{tag}.aln")
+        _run(main, ["-t", "reference", "-g", SMALL_FA, "-k", "75", "-r", kdb])
+        _run(main, ["-t", "align", "-r", kdb, "--reads", SMALL_FQ, "-a", aln,
+                    "--batch-size", "256"] + gates)
+        outs.append(_run(main, ["-t", "dumpalign", "-a", aln]))
+        files.append((kdb, aln))
+    for mine, theirs in zip(*files):
+        with open(mine, "rb") as a, open(theirs, "rb") as b:
+            assert a.read() == b.read(), mine
+    assert outs[0] == outs[1] == _run(
+        cli.main, ["-t", "dumpalign", "-r", files[0][0], "--reads", SMALL_FQ] + gates)
+    stats = json.loads(outs[0])["Statistics"]
+    assert stats["unique_mapped_reads"] > 0 and stats["ambiguous_mapped_reads"] > 0
 
 
 def test_jax_superbatch_counts_its_tail(tmp_path, monkeypatch):

@@ -1,6 +1,8 @@
-"""The port's sort-join probe (shotgun_tpu_torch.ops.probe_sort2) and the
-pipeline's sort route against the JAX package's, on identical inputs.
-All four probe outputs and every BatchResult field are compared exactly."""
+"""The port's sort-join probe (shotgun_tpu_torch.ops.probe_sort2: one
+join over 31-base key words, one word at k <= 31) and the pipeline's sort
+routes against the JAX package's probes of k <= 31 and of multi-word
+keys, on identical inputs.  All four probe
+outputs and every BatchResult field are compared exactly."""
 
 import functools
 
@@ -18,13 +20,16 @@ from shotgun_tpu.models import pipeline as jpipe
 from shotgun_tpu.ops.encode import pack_codes_2bit, rolling_encode_jnp
 from shotgun_tpu.ops.probe_sort import SortedTableDev as JaxSortedTableDev
 from shotgun_tpu.ops.probe_sort import sorted_table_host as jax_sorted_table_host
+from shotgun_tpu.ops.encode import rolling_encode_words_jnp as jenc_words
 from shotgun_tpu.ops.probe_sort2 import probe_dedupe_sorted as jax_probe
+from shotgun_tpu.ops.probe_sort2 import probe_dedupe_sorted_words as jax_probe_words
 from shotgun_tpu.reference import KmerReference as JaxKmerReference
 from shotgun_tpu.utils.synth import synth_genomes, synth_reads
 from shotgun_tpu_torch import convert
 from shotgun_tpu_torch.models import pipeline as tpipe
+from shotgun_tpu_torch.ops.encode import encode_words_plain
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table, sorted_table_host
-from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted
+from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted, probe_dedupe_sorted_words
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -119,9 +124,9 @@ def test_empty_table():
 
 
 def test_table_of_dead_rows_only_is_empty():
-    tab = sorted_table(np.arange(5, dtype=np.int64), np.zeros(5, np.int32),
+    tab = sorted_table((np.arange(5, dtype=np.int64),), np.zeros(5, np.int32),
                        np.zeros(5, np.int32), CPU)
-    assert tab.keys.numel() == 0
+    assert tab.words[0].numel() == 0
     hit, sid, gc, fo = probe_dedupe_sorted(
         tab, torch.arange(6).reshape(2, 3), torch.ones((2, 3), dtype=torch.bool))
     assert not hit.any() and (sid == -1).all() and (gc == 0).all() and not fo.any()
@@ -151,7 +156,7 @@ def test_poly_t_kmer_gated_and_ok():
     genomes = pack_genomes([SeqRecord([("description", f"g{i}"), ("genome", s)])
                             for i, s in enumerate(seqs)])
     index = build_index(genomes, k)
-    keys, _, _ = sorted_table_host(convert.kmer_index(index))
+    (keys,), _, _ = sorted_table_host(convert.kmer_index(index))
     assert keys[-1] == (1 << 62) - 1
     jtab = JaxKmerReference(k, _index=index).device_probe_tables("sort")
     codes = np.full((4, 50), 3, dtype=np.uint8)  # every window all-T
@@ -210,3 +215,97 @@ def test_align_batch_sort_route_matches_jax(gates):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     mtype = np.asarray(want.mtype)
     assert (mtype == 1).any() and (mtype == 2).any()
+
+
+# --- multi-word keys (k > 31): the port's join of 31-base words against
+# the JAX package's probe_dedupe_sorted_words on 16-base words
+
+WORD_KS = [32, 35, 62, 63, 64, 75, 93, 150]
+
+
+def _word_genomes(rng, k):
+    """Three genomes with shared k-mers and a poly-T run longer than k, so
+    the table holds the all-T key (at k = 64 JAX's all-ones pad key)."""
+    seqs = ["".join("ACGT"[c] for c in rng.integers(0, 4, size=600)) for _ in range(3)]
+    seqs[1] = seqs[0][:200] + seqs[1][200:]
+    seqs[2] = seqs[2][:100] + "T" * (k + 20) + seqs[2][100:]
+    return pack_genomes([SeqRecord([("description", f"g{i}"), ("genome", s)])
+                         for i, s in enumerate(seqs)])
+
+
+@pytest.mark.parametrize("k", WORD_KS)
+def test_probe_dedupe_sorted_words_matches_jax(k):
+    """On the word table of a host index (JAX's with its pad rows, the
+    port's converted without them): reads with keys repeated within the
+    read, an all-T read, gated windows among ok ones, a read whose every
+    window is gated."""
+    rng = np.random.default_rng(4000 + k)
+    genomes = _word_genomes(rng, k)
+    index = build_index(genomes, k)
+    jtab = JaxKmerReference(k, _index=index).device_probe_tables("sort")
+    assert (np.asarray(jtab.gc) == 0).any()  # JAX's pad rows
+    b, l = 24, 4 * ((k + 50) // 4)
+    codes = _reads_with_duplicates(rng, genomes, b, l, k)
+    codes[1] = 3                               # every window all-T
+    codes[2, : l // 2] = codes[2, l // 2: 2 * (l // 2)]  # the read's halves repeat
+    ok = _gates(rng, codes, k)
+    ok[1, ::3] = False
+    ok[3] = False
+    want = jax.jit(lambda qws, ok: jax_probe_words(
+        jtab, qws, ok, num_sets=index.num_sets, max_genome_count=3))(
+        jenc_words(jnp.asarray(codes), k), jnp.asarray(ok))
+    tab = convert.sorted_table_words(jtab, k, CPU)
+    assert isinstance(tab, SortedTableDev) and tab.sid.numel() == index.num_kmers
+    words, _ = encode_words_plain(torch.from_numpy(pack_codes_2bit(codes)), k)
+    got = probe_dedupe_sorted_words(tab, words, torch.from_numpy(ok))
+    _assert_equal([g.numpy() for g in got], [np.asarray(w) for w in want])
+    hit, fo = got[0].numpy(), got[3].numpy()
+    assert hit[1].any() and not hit[1, ::3].any() and not hit[3].any()
+    assert (hit & ~fo).any() and (ok & ~hit).any()
+    # the host table of the port's own index is the converted JAX table
+    host = sorted_table(*sorted_table_host(convert.kmer_index(index)), CPU)
+    for a, c in zip(host.words + (host.sid, host.gc), tab.words + (tab.sid, tab.gc)):
+        assert torch.equal(a, c)
+
+
+def test_probe_dedupe_sorted_words_on_an_empty_table():
+    empty = sorted_table([np.zeros(0, np.int64)] * 3, np.zeros(0, np.int32),
+                         np.zeros(0, np.int32), CPU)
+    words = tuple(torch.zeros((2, 4), dtype=torch.int64) for _ in range(3))
+    hit, sid, gc, fo = probe_dedupe_sorted_words(empty, words, torch.ones((2, 4), dtype=torch.bool))
+    assert not hit.any() and (sid == -1).all() and (gc == 0).all() and not fo.any()
+
+
+@pytest.mark.parametrize("k,gates", [(35, (False, False, False)), (64, (True, True, True)),
+                                     (75, (False, True, False)), (150, (True, True, True))])
+def test_align_batch_word_route_matches_jax(k, gates):
+    """The pipeline on the multi-word route against JAX ``align_batch_core``
+    with a SortedTableDevW (the port's SortedTableDev of the same words),
+    field by field."""
+    rng = np.random.default_rng(k)
+    l, b = 4 * ((k + 60) // 4), 48
+    genomes = synth_genomes(rng, 4, 1500)
+    genomes.codes[1500: 1900] = genomes.codes[:400]  # shared k-mers
+    reads = synth_reads(rng, genomes, b, l)
+    codes = np.array(reads.codes)
+    mutate = rng.random(codes.shape) < 0.01
+    codes[mutate] = rng.integers(0, 4, size=mutate.sum())
+    qual = rng.integers(60, 91, size=(b, l)).astype(np.uint8)
+    lengths = rng.integers(k - 2, l + 1, size=b).astype(np.int32)
+    qual[np.arange(l)[None, :] >= lengths[:, None]] = 0
+    jref = JaxKmerReference(k, _index=build_index(genomes, k))
+    jtab = jref.device_probe_tables("sort")
+    member = jref.set_member_dense()
+    params = (1, 1, 72, 74, 2)
+    packed = pack_codes_2bit(codes)
+    want = _jax_core(k, *gates)(
+        jtab, jnp.asarray(member), jnp.asarray(packed), jnp.asarray(qual),
+        jnp.asarray(lengths), *(jnp.int32(v) for v in params))
+    got = tpipe.align_batch(
+        convert.sorted_table_words(jtab, k, CPU), torch.from_numpy(member),
+        torch.from_numpy(packed), torch.from_numpy(qual) if gates[0] or gates[1] else None,
+        torch.from_numpy(lengths), *params, k=k, has_mrq=gates[0], has_mkq=gates[1],
+        has_mg=gates[2])
+    for name, g, w in zip(want._fields, got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    assert (np.asarray(want.mtype) == 1).any()

@@ -169,7 +169,8 @@ def test_profile_align_probe_and_device_build(probe, capsys, monkeypatch):
 def test_bench_sortjoin_case_has_hits_repeats_and_gated_windows():
     tab, keys, ok = bench_sortjoin.make_case(np.random.default_rng(9), 3000, 32, CPU)
     assert keys.shape == (32, bench_sortjoin.WINDOWS)
-    assert bool((tab.keys[1:] > tab.keys[:-1]).all()) and tab.keys.numel() == 3000
+    (tkeys,) = tab.words
+    assert bool((tkeys[1:] > tkeys[:-1]).all()) and tkeys.numel() == 3000
     hit, sid, gc, first = probe_dedupe_sorted(tab, keys, ok)
     assert 0.3 < hit.float().mean() < 0.7 and not ok.all()
     assert bool((first <= hit).all()) and int(hit.sum()) > int(first.sum())
@@ -190,6 +191,27 @@ def test_bench_sortjoin_runs_on_cpu_and_reports_no_device_metric(capsys):
         assert set(run["ms"]) == {"join", "join_cummax", "sort_stable",
                                   "sort_unstable", "cummax", "cumsum",
                                   "scatter_restore", "hash16"}
+
+
+def test_bench_sortjoin_words_exits_1_without_cuda(monkeypatch, capsys):
+    """``--k`` above 31 times the card against its plain version on the
+    CPU, so it needs the card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        bench_sortjoin.main(["--k", "75", "--iters", "1"])
+    assert exc.value.code == 1
+    assert "torch.cuda.is_available() is false" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("k", [35, 75])
+def test_bench_sortjoin_words_on_a_small_strain_panel(k):
+    """The word bench's steps on the CPU at a small size: the panel's
+    reads hit the word table, and the outputs equal the plain version's."""
+    res = bench_sortjoin.bench_words(k, 3000, 64, 1, 3, CPU)
+    assert res["words"] == -(-k // 31) and res["batch"] == [64, 160 - k + 1]
+    assert all(res["plain_equal"].values()) and res["hits"] > 0
+    assert res["table_rows"] > res["table_rows_k31"] > 0
+    assert set(res["ms"]) == {"word_join", "join_k31"}
 
 
 def test_bench_probe_cases_are_the_two_hash_layouts():
