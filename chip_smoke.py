@@ -89,7 +89,25 @@ Phases, one line each:
  10. the library's ``align_packed_reads`` on the golden corpus on the sort
      join, the 4-slot hash (H2) and at k = 35 (the word join): its summary
      and read store equal ``align_stream``'s and the summary the plain
-     case's at k = 11.
+     case's at k = 11;
+ 11. the multi-device paths (``shotgun_tpu_torch.parallel``) on the card, at
+     the sizes of phases 5 and 6, several shards on cuda:0:
+     a. data parallel: ``align_packed_reads`` of phase 5's 524,288 reads
+        (parsed from its FASTQ) over ``make_mesh([cuda:0] * 4)`` against a
+        device build of its 32 Mbp genomes (the 16-slot table, H2), with
+        phase 5's MKQ gate: the summary equal to phase 5's stdout;
+     b. the same on the strain panel over 8 shards (the sort join), equal to
+        phase 6's stdout;
+     c. DP x TP: a 2 x 2 mesh with the sort table split in 2 key ranges, on
+        the strain panel and on the 32 Mbp genomes (SHOTGUN_TPU_PROBE=sort,
+        31,999,040 rows), each equal to its single-device run; one batch's
+        ms (CUDA events around back-to-back batches) beside the
+        single-device sort join's;
+     d. two CLI processes (SHOTGUN_TPU_NPROCS=2) of `-t dumpalign -g -k 31`
+        on the strain panel, both on cuda:0 over gloo: process 0's stdout
+        ends in phase 6's, process 1 prints no summary;
+     e. ``tools/dryrun.py dryrun_multichip(4)``.
+     Each path's wall, reads/s, peak device memory and kernel launches.
 
 Then one JSON line of per-kernel results and, last, the device line.  Any
 failure raises and exits non-zero; so does a machine without CUDA, and a
@@ -105,8 +123,9 @@ and sums together); each timed mode carries its own main-path launches,
 and the multi-word mode the H1 launches of phase 9's MKQ run, its path.
 Kernel H2's entry likewise gives the 16-slot table (the main path's) and
 the 4-slot one (launched on the `hash` routes) as two modes.
-Each kernel's launches on every path (the main path and the four
-strain-panel routes, each counted from 0) are listed too.  No single
+Each kernel's launches on every path (the main path, the strain-panel
+routes, the later phases' runs and phase 11's mesh paths, each counted
+from 0) are listed too.  No single
 PyTorch call computes either kernel's function, so ``library_ms`` is
 null, with the reason beside it.
 """
@@ -185,6 +204,20 @@ CSRC = "shotgun_tpu_torch/ops/kernels/csrc"
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches() -> None:
+    from shotgun_tpu_torch.ops.encode import encode_window
+    from shotgun_tpu_torch.ops.probe import hash_probe
+
+    encode_window.launches = hash_probe.launches = 0
+
+
+def read_launches() -> dict:
+    from shotgun_tpu_torch.ops.encode import encode_window
+    from shotgun_tpu_torch.ops.probe import hash_probe
+
+    return {"encode_window": encode_window.launches, "hash_probe": hash_probe.launches}
 
 
 def max_abs_err(got, want) -> int:
@@ -618,16 +651,14 @@ def counted_run(argv, env=None, out_path=None, stream=True):
     torch.cuda.reset_peak_memory_stats()
     PROFILER.stats.clear()
     PROFILER.enable()
-    encode_window.launches = 0
+    reset_launches()
     encode_window.launches_by_mode.clear()
-    hash_probe.launches = 0
     hash_probe.launches_by_mode.clear()
     t0 = time.perf_counter()
     out = run_cli(argv + ["--profile"], env, out_path)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"encode_window": encode_window.launches,
-                "hash_probe": hash_probe.launches}
+    launches = read_launches()
     PROFILER.enabled = False
     stages = {name: st.seconds for name, st in PROFILER.stats.items()}
     if stream and ("stream_align" not in stages or "align" in stages):
@@ -701,7 +732,8 @@ def phase_db_build(panels, device):
 
 def phase_main_path(fa: str, fq: str, gi: np.ndarray) -> tuple:
     """Phase 5: dumpalign through the CLI, held against the known truth;
-    returns each kernel's launch count in that run, and by mode."""
+    returns each kernel's launch count in that run, and by mode, its
+    stdout and its peak device memory."""
     from shotgun_tpu_torch.io import native_available
     from shotgun_tpu_torch.ops.encode import encode_window
     from shotgun_tpu_torch.ops.probe import hash_probe
@@ -742,12 +774,12 @@ def phase_main_path(fa: str, fq: str, gi: np.ndarray) -> tuple:
             n, N_GENOMES, GENOME_LEN, K, wall, stages.get("fasta_parse", 0.0),
             stages["db_build_device"], stages.get("table_build", 0.0),
             align_s, n / align_s, n / wall, peak, launches, by_mode))
-    return launches, by_mode
+    return launches, by_mode, out, peak
 
 
-def phase_strains(fa: str, fq: str) -> dict:
+def phase_strains(fa: str, fq: str) -> tuple:
     """Phase 6: the strain panel through the CLI on four routes, byte-equal;
-    returns each route's kernel launches."""
+    returns each route's kernel launches and the summary."""
     routes = [("device build + sort", {}, "db_build_device", False),
               ("host build + sort", {"SHOTGUN_TPU_DEVICE_BUILD": "0"}, "db_build", False),
               ("host build + hash", {"SHOTGUN_TPU_PROBE": "hash"}, "db_build", True),
@@ -781,7 +813,7 @@ def phase_strains(fa: str, fq: str) -> dict:
                                STRAIN_GENOMES // STRAIN_ANCESTORS, STRAIN_LEN,
                                100 * MUTATION_RATE, N_READS, 100 * ERROR_RATE,
                                len(routes), stats, "; ".join(parts)))
-    return by_route
+    return by_route, outs[0]
 
 
 def golden(case: str) -> str:
@@ -1157,6 +1189,225 @@ def phase_packed() -> dict:
     return by_path
 
 
+#: phase 11d's child: the port's CLI, then its kernel launches on stderr
+CLI_CHILD = r"""
+import json, sys
+from shotgun_tpu_torch.cli import main
+from shotgun_tpu_torch.ops.encode import encode_window
+from shotgun_tpu_torch.ops.probe import hash_probe
+try:
+    main(sys.argv[1:])
+finally:
+    print("launches " + json.dumps({"encode_window": encode_window.launches,
+                                    "hash_probe": hash_probe.launches}), file=sys.stderr)
+"""
+
+
+def mesh_run(ref, batch, mesh, device, mkq=None) -> tuple:
+    """``align_packed_reads`` of ``batch`` over ``mesh`` (None: one device)
+    with the CLI's auto batch size, every kernel's count set to 0 just
+    before it: (the summary as the CLI prints it, launches, wall s)."""
+    import torch
+
+    from shotgun_tpu_torch.aligner import PseudoAlignment
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    aln = PseudoAlignment(ref, device)
+    aln.align_packed_reads(batch, min_kmer_quality=mkq, batch_size=0, store_reads=False,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    return json.dumps(aln.get_summary(), indent=4) + "\n", launches, wall
+
+
+def batch_ms(fn, iters: int = 5) -> float:
+    """ms a call of ``fn`` on the card's clock: CUDA events around
+    ``iters`` back-to-back calls, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def tp_batch_ms(ref, batch, device) -> tuple:
+    """One batch of BATCH reads (no gate) on the sort table: ms a batch on
+    one device and on the 2 x 2 DP x TP mesh of cuda:0."""
+    import torch
+
+    from shotgun_tpu_torch.models.pipeline import aggregate_batch, align_batch
+    from shotgun_tpu_torch.ops.encode import pack_codes_2bit
+    from shotgun_tpu_torch.parallel.mesh import replicate, shard_read_arrays
+    from shotgun_tpu_torch.parallel.table_sharded import (
+        align_aggregate_table_sharded,
+        device_put_sharded_table,
+        make_mesh_2d,
+        shard_sorted_table,
+    )
+
+    codes = np.zeros((BATCH, LPAD), dtype=np.uint8)
+    codes[:, : batch.max_len] = batch.codes[:BATCH]
+    arrays = (pack_codes_2bit(codes), None, batch.lengths[:BATCH].astype(np.int32),
+              np.ones(BATCH, dtype=bool))
+    flags = dict(k=K, has_mrq=False, has_mkq=False, has_mg=False)
+    tab, member = ref.device_probe_tables(device), ref.set_member_device(device)
+    one_args = [None if a is None else torch.from_numpy(a).to(device) for a in arrays]
+    one = batch_ms(lambda: aggregate_batch(align_batch(
+        tab, member, *one_args[:3], 1, 1, 0, 0, 0, **flags), one_args[3]))
+    mesh = make_mesh_2d([device] * 4, data=2, table=2)
+    parts = device_put_sharded_table(mesh, shard_sorted_table(tab, 2))
+    (members,) = replicate(mesh, member)
+    shards = shard_read_arrays(mesh, *arrays)
+    tp = batch_ms(lambda: align_aggregate_table_sharded(
+        parts, members, *shards, 1, 1, 0, 0, 0, mesh=mesh, **flags))
+    return one, tp
+
+
+def two_process_cli(argv, strain_out: str) -> tuple:
+    """Phase 11d: two CLI processes on cuda:0 (``SHOTGUN_TPU_NPROCS=2``);
+    (wall s, backend, process 0's stages, each process's launches)."""
+    from shotgun_tpu_torch.tools.dryrun import run_two_processes
+
+    t0 = time.perf_counter()
+    outs = run_two_processes(["-c", CLI_CHILD, *argv, "--profile"],
+                             dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cuda"), timeout=400)
+    wall = time.perf_counter() - t0
+    if not outs[0][0].endswith(strain_out):
+        raise AssertionError("11d: process 0's summary != phase 6's")
+    if "{" in outs[1][0]:
+        raise AssertionError("11d: process 1 printed a summary")
+    backend = outs[0][1].split("backend ", 1)[1].split()[0]
+    stages = {}
+    for line in outs[0][1].split("=== profile ===", 1)[1].splitlines():
+        fields = line.split()
+        if len(fields) >= 3 and fields[2] == "ms":
+            stages[fields[0]] = float(fields[1]) / 1e3
+    launches = [json.loads(err.rsplit("launches ", 1)[1].splitlines()[0]) for _, err in outs]
+    return wall, backend, stages, launches
+
+
+def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: int,
+               strain_out: str, device) -> dict:
+    """Phase 11: the multi-device paths on cuda:0 against the single-device
+    summaries of phases 5 and 6; returns each path's kernel launches."""
+    import torch
+
+    from shotgun_tpu_torch.io.data_file import FASTAFile, FASTAQFile
+    from shotgun_tpu_torch.parallel.mesh import make_mesh
+    from shotgun_tpu_torch.parallel.table_sharded import make_mesh_2d
+    from shotgun_tpu_torch.reference import PROBE_ENV, KmerReference
+    from shotgun_tpu_torch.tools.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    by_path, parts = {}, []
+
+    def check(name, out, want, launches, hashed):
+        if out != want:
+            raise AssertionError(f"11 {name}: the summary differs from its single-device run")
+        if launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed:
+            raise AssertionError(f"11 {name}: launches {launches}")
+        by_path[f"11 {name}"] = launches
+
+    # 11a: 4 data shards, 32 Mbp, the device build's 16-slot table
+    t0 = time.perf_counter()
+    batch = FASTAQFile(fq).container.to_read_batch()
+    parse_s = time.perf_counter() - t0
+    n = batch.num_reads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    main_ref = KmerReference.from_device_build(FASTAFile(fa).container.to_genome_arrays(),
+                                               K, device)
+    if main_ref.probe_method() != "hash16":
+        raise AssertionError(f"11a: the route is {main_ref.probe_method()}, not hash16")
+    out, launches, wall = mesh_run(main_ref, batch, make_mesh([device] * 4), device, MKQ)
+    peak = torch.cuda.max_memory_allocated()
+    check("a: DP 4 shards, 32 Mbp hash16", out, main_out, launches, True)
+    parts.append("a. DP, 4 shards, 32 Mbp, 16-slot table (device build), MKQ %d: %d reads "
+                 "(FASTQ parsed whole in %.3f s), align_packed_reads %.3f s = %.0f reads/s, "
+                 "launches %s, peak device memory %d B (device build + table + align; phase "
+                 "5: %d B); summary == phase 5's stdout" % (
+                     MKQ, n, parse_s, wall, n / wall, launches, peak, main_peak))
+
+    # 11b: 8 data shards, the strain panel, the sort join
+    strain_batch = FASTAQFile(sfq).container.to_read_batch()
+    torch.cuda.reset_peak_memory_stats()
+    strain_ref = KmerReference.from_device_build(
+        FASTAFile(sfa).container.to_genome_arrays(), K, device)
+    out, launches, wall = mesh_run(strain_ref, strain_batch, make_mesh([device] * 8), device)
+    check("b: DP 8 shards, strains sort", out, strain_out, launches, False)
+    parts.append("b. DP, 8 shards, strain panel, sort join (device build): align_packed_reads "
+                 "%.3f s = %.0f reads/s, launches %s, peak %d B; summary == phase 6's stdout"
+                 % (wall, N_READS / wall, launches, torch.cuda.max_memory_allocated()))
+
+    # 11c: DP x TP, 2 x 2, the sorted table in 2 key ranges
+    mesh2 = make_mesh_2d([device] * 4, data=2, table=2)
+    out, launches, wall = mesh_run(strain_ref, strain_batch, mesh2, device)
+    check("c: DP x TP 2x2, strains", out, strain_out, launches, False)
+    one_ms, tp_ms = tp_batch_ms(strain_ref, strain_batch, device)
+    parts.append("c. DP x TP 2 x 2, strain panel (%d table rows in 2 key ranges): %.3f s = "
+                 "%.0f reads/s, launches %s; a batch of %d reads %.3f ms against %.3f ms on "
+                 "one device (sort join); summary == phase 6's" % (
+                     strain_ref.index.num_kmers, wall, N_READS / wall, launches, BATCH,
+                     tp_ms, one_ms))
+    del strain_ref
+    os.environ[PROBE_ENV] = "sort"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        one_out, one_launches, one_wall = mesh_run(main_ref, batch, None, device, MKQ)
+        check("c: one device, 32 Mbp sort", one_out, main_out, one_launches, False)
+        one_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, launches, wall = mesh_run(main_ref, batch, mesh2, device, MKQ)
+        check("c: DP x TP 2x2, 32 Mbp sort", out, one_out, launches, False)
+        tp_peak = torch.cuda.max_memory_allocated()
+        rows = main_ref.device_probe_tables(device).sid.numel()
+        one_ms, tp_ms = tp_batch_ms(main_ref, batch, device)
+    finally:
+        os.environ.pop(PROBE_ENV)
+    parts.append("c. DP x TP 2 x 2, 32 Mbp sort table (%d rows in 2 key ranges): %.3f s = "
+                 "%.0f reads/s, launches %s, peak %d B; one device, sort join: %.3f s = "
+                 "%.0f reads/s, peak %d B; a batch of %d reads %.3f ms against %.3f ms on "
+                 "one device; both summaries == phase 5's" % (
+                     rows, wall, n / wall, launches, tp_peak, one_wall, n / one_wall,
+                     one_peak, BATCH, tp_ms, one_ms))
+    del main_ref, batch, strain_batch
+    torch.cuda.empty_cache()
+
+    # 11d: two CLI processes on cuda:0, over gloo
+    wall, backend, stages, launches = two_process_cli(
+        ["-t", "dumpalign", "-g", sfa, "-k", str(K), "--reads", sfq], strain_out)
+    if backend != "gloo":
+        raise AssertionError(f"11d: backend {backend}, not gloo (one card, two processes)")
+    for rank, got in enumerate(launches):
+        if got["encode_window"] <= 0 or got["hash_probe"] != 0:
+            raise AssertionError(f"11d: process {rank} launches {got}")
+        by_path[f"11 d: 2-process CLI, process {rank}"] = got
+    parts.append("d. 2-process CLI dumpalign -g on the strain panel, both on cuda:0, backend "
+                 "%s: wall %.3f s (process 0: host build %.3f s, FASTQ parse %.3f s, align "
+                 "%.3f s = %.0f reads/s), launches %s; process 0 == phase 6, process 1 "
+                 "silent" % (backend, wall, stages.get("db_build", 0.0),
+                             stages.get("fastq_parse", 0.0), stages.get("align", 0.0),
+                             N_READS / stages["align"], launches))
+
+    # 11e: the dry run of tools/dryrun.py
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device)
+    parts.append("e. dryrun_multichip(4) on cuda:0 passed in %.3f s" % (
+        time.perf_counter() - t0))
+    say("phase 11 multi-device paths on one card (%.3f s): %s" % (
+        time.perf_counter() - t_phase, "; ".join(parts)))
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1232,7 +1483,7 @@ def main() -> int:
         write_workload(work, fa, fq)
         gi = work.genome_of
         del genomes, work
-        launches, by_mode = phase_main_path(fa, fq, gi)
+        launches, by_mode, main_out, main_peak = phase_main_path(fa, fq, gi)
         torch.cuda.empty_cache()
 
         # 6. strain panel on four routes
@@ -1242,7 +1493,8 @@ def main() -> int:
         write_fastq(sqfq, strain_work.codes, strain_qual)
         write_fastq(sqfq_head, strain_work.codes[:BATCH], strain_qual[:BATCH])
         del strains, strain_work
-        by_path = {"main path": launches, **phase_strains(sfa, sfq)}
+        strain_routes, strain_out = phase_strains(sfa, sfq)
+        by_path = {"main path": launches, **strain_routes}
         torch.cuda.empty_cache()
 
         # 7. goldens on the card, every route
@@ -1261,6 +1513,10 @@ def main() -> int:
         by_path.update(words_by_path)
         torch.cuda.empty_cache()
         by_path.update(phase_packed())
+        torch.cuda.empty_cache()
+
+        # 11. the multi-device paths, several shards on the one card
+        by_path.update(phase_mesh(fa, fq, sfa, sfq, main_out, main_peak, strain_out, device))
     torch.cuda.empty_cache()
 
     word_launches = words_by_path[

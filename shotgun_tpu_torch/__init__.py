@@ -11,7 +11,9 @@ It runs the four CLI tasks (``reference``, ``dumpref``, ``align``,
 probe, the bucket-hash probe (4- and 16-slot tables) and, at k > 31, the
 sort join of multi-word keys; the database built on the device or on the
 host.  The single-read API (``Read``, ``PseudoAlignment.add_read*``) runs
-on the host.  The three Pallas kernels of the JAX package are two
+on the host.  ``parallel/`` shards reads over a mesh of devices and
+processes (``torch.distributed``), and the sorted table over a table
+axis, with exact integer merges.  The three Pallas kernels of the JAX package are two
 hand-written CUDA kernels for Hopper (``ops/kernels/csrc``); each has a
 plain PyTorch version beside its wrapper, which runs only for tensors on
 the CPU.

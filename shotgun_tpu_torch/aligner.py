@@ -15,6 +15,10 @@ device (``models.pipeline.store_lists``) and copied to pinned host memory
 without blocking: a byte of mapping type and a list length per read, and
 the lists themselves.  The host then does only what needs strings: the
 read ids and the duplicate check.
+
+``align_packed_reads(mesh=...)`` shards each batch over a device mesh
+(``parallel``): the merged per-batch results fold into the same carry, so
+the summary is the single-device one.
 """
 
 from __future__ import annotations
@@ -48,8 +52,19 @@ from shotgun_tpu_torch.models.pipeline import (
     unmapped_batch,
 )
 from shotgun_tpu_torch.ops.encode import pack_codes_2bit
-from shotgun_tpu_torch.reference import KDBFormatError, KmerReference, not_ported
-from shotgun_tpu_torch.utils.device import resolve_device
+from shotgun_tpu_torch.parallel.mesh import (
+    Mesh,
+    align_aggregate_sharded,
+    replicate,
+    shard_read_arrays,
+)
+from shotgun_tpu_torch.parallel.table_sharded import (
+    align_aggregate_table_sharded,
+    device_put_sharded_table,
+    shard_sorted_table,
+)
+from shotgun_tpu_torch.reference import KDBFormatError, KmerReference
+from shotgun_tpu_torch.utils.device import resolve_device, upload
 from shotgun_tpu_torch.utils.profiling import phase
 
 _INF = np.iinfo(np.int64).max
@@ -464,15 +479,6 @@ class PseudoAlignment:
         if max_genomes is not None:
             self.filter_max_genomes_flag = True
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host chunk -> device: staged in pinned memory and copied
-        without blocking on CUDA (the caching host allocator keeps the
-        pinned block alive until the copy has run)."""
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def _fold_chunks(self, chunks: Iterable[Chunk], m, p, min_read_quality,
                      min_kmer_quality, max_genomes, store_reads: bool = False
                      ) -> Tuple[FoldCarry, int, List[StoreLists]]:
@@ -504,9 +510,9 @@ class PseudoAlignment:
         n_batches = 0
         lists: List[StoreLists] = []
         for codes_p, qual, lengths, got in chunks:
-            lengths_d = self._upload(lengths)
-            res = batch_fn(self._upload(codes_p),
-                           self._upload(qual) if use_qual else None, lengths_d)
+            lengths_d = upload(lengths, self.device)
+            res = batch_fn(upload(codes_p, self.device),
+                           upload(qual, self.device) if use_qual else None, lengths_d)
             # zero-length rows are the tail padding of the final chunk
             # (the FASTQ grammar requires a nonempty sequence line)
             carry = _fold_agg(carry, aggregate_batch(res, lengths_d > 0))
@@ -589,15 +595,16 @@ class PseudoAlignment:
         max_genomes: Optional[int] = None,
         batch_size: int = 1024,
         store_reads: bool = True,
+        mesh: Optional[Mesh] = None,
     ) -> None:
-        """Align parsed records (the regex-engine fallback route) through
-        ``align_packed_reads``."""
+        """Align parsed records (the regex-engine fallback route, and the
+        mesh route) through ``align_packed_reads``."""
         if hasattr(reads_container, "to_read_batch"):
             batch = reads_container.to_read_batch()
         else:
             batch = pack_reads(list(reads_container))
         self.align_packed_reads(batch, m, p, min_read_quality, min_kmer_quality,
-                                max_genomes, batch_size, store_reads)
+                                max_genomes, batch_size, store_reads, mesh)
 
     def align_packed_reads(
         self,
@@ -609,17 +616,24 @@ class PseudoAlignment:
         max_genomes: Optional[int] = None,
         batch_size: int = 1024,
         store_reads: bool = True,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         """Align a packed ``ReadBatch`` on this alignment's device: packed
         on the host into the chunks the stream yields; the store's ids are
-        the batch's own.  ``mesh`` (reads sharded over devices) is not
-        ported yet."""
-        if mesh is not None:
-            raise not_ported("align_packed_reads over a mesh (multi-device runs)", 5)
+        the batch's own.
+
+        ``mesh`` (``parallel``; needs ``store_reads=False``): each batch,
+        rounded up to a multiple of the data axis, is sharded over it, the
+        probe table replicated or, on a ``("data", "table")`` mesh,
+        range-partitioned over the table axis (the sort join only); the
+        summary equals the single-device run's."""
+        if mesh is not None and store_reads:
+            raise ValueError("mesh-sharded alignment requires store_reads=False")
         self._check_args(m, p, min_read_quality, min_kmer_quality, max_genomes)
         n = batch.num_reads
         b = batch_size or _auto_batch(n)
+        if mesh is not None:
+            b = -(-b // mesh.shape["data"]) * mesh.shape["data"]
         lpad = _lpad(batch.max_len, self.kmer_reference.index.k)
         use_qual = min_read_quality is not None or min_kmer_quality is not None
         dummy_qual = np.zeros((b, 1), dtype=np.uint8)
@@ -637,10 +651,44 @@ class PseudoAlignment:
                 lengths[:rows] = batch.lengths[start: start + rows]
                 yield pack_codes_2bit(codes), qual, lengths, rows
 
-        carry, n_batches, lists = self._fold_chunks(
-            chunks(), m, p, min_read_quality, min_kmer_quality, max_genomes,
-            store_reads)
+        gates = (m, p, min_read_quality, min_kmer_quality, max_genomes)
+        if mesh is None:
+            carry, n_batches, lists = self._fold_chunks(chunks(), *gates, store_reads)
+        else:
+            carry, n_batches = self._fold_mesh(chunks(), mesh, *gates)
+            lists = []
         self._finish_run(carry, n_batches, lists, batch.ids)
+
+    def _fold_mesh(self, chunks: Iterable[Chunk], mesh: Mesh, m, p, min_read_quality,
+                   min_kmer_quality, max_genomes) -> Tuple[FoldCarry, int]:
+        """Align every chunk over ``mesh`` and fold the merged results into
+        a carry on its first device; the table and the set membership are
+        placed once a run."""
+        ref = self.kmer_reference
+        k = ref.index.k
+        dev = mesh.devices[0]
+        use_qual = min_read_quality is not None or min_kmer_quality is not None
+        (member,) = replicate(mesh, ref.set_member_device(dev))
+        step, tabs = align_aggregate_sharded, None
+        if k >= 1 and "table" in mesh.shape:
+            step = align_aggregate_table_sharded
+            tabs = device_put_sharded_table(mesh, shard_sorted_table(
+                ref.device_probe_tables(dev), mesh.table))
+        elif k >= 1:
+            (tabs,) = replicate(mesh, ref.device_probe_tables(dev))
+        carry = init_fold_carry(member[0].shape[1], dev, start_batch=self._batch_no)
+        n_batches = 0
+        for codes_p, qual, lengths, rows in chunks:
+            shards = shard_read_arrays(mesh, codes_p, qual if use_qual else None, lengths,
+                                       np.arange(lengths.shape[0]) < rows)
+            agg = step(tabs, member, *shards, m, p, min_read_quality or 0,
+                       min_kmer_quality or 0, max_genomes or 0, mesh=mesh, k=k,
+                       has_mrq=min_read_quality is not None,
+                       has_mkq=min_kmer_quality is not None,
+                       has_mg=max_genomes is not None)
+            carry = _fold_agg(carry, agg)
+            n_batches += 1
+        return carry, n_batches
 
     def _merge_fold_carry(self, carry: FoldCarry, r: int) -> None:
         """Fold a fetched FoldCarry (numpy arrays) into the host totals."""

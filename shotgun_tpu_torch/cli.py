@@ -8,8 +8,12 @@ files (``.kdb``, ``.aln``).  Databases are built on the host, except for
 ``dumpalign -g``, which builds on the device for genomes of 4-64 Mbp as
 the JAX package's does (``dumpalign_reference``): only dumpalign never
 needs the host postings.  Any k >= 1 aligns (k > 31 by the sort join of
-multi-word keys); at k < 1 no read maps.  A multi-process dumpalign
-(``SHOTGUN_TPU_NPROCS`` > 1) exits non-zero with "not yet ported".
+multi-word keys); at k < 1 no read maps.  ``dumpalign -r/-g`` runs over a
+device mesh when the environment asks for one (``parallel.distributed
+initialize_from_env``: ``SHOTGUN_TPU_NPROCS`` processes, or
+``SHOTGUN_TPU_MESH=data`` over the local devices), as the JAX package's
+does: the reads parsed whole and sharded, the database of ``-g`` built on
+the host, and only process 0 printing the summary.
 
 The device comes from ``$SHOTGUN_TPU_TORCH_DEVICE`` (default ``cuda``;
 asking for CUDA without it is an error, never a silent CPU run).
@@ -18,6 +22,7 @@ asking for CUDA without it is an error, never a silent CPU run).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gzip
 import json
 import os
@@ -46,12 +51,9 @@ from shotgun_tpu_torch.aligner import (
     NotValidatingUniqueMapping,
     PseudoAlignment,
 )
-from shotgun_tpu_torch.reference import (
-    PROBE_ENV,
-    KDBFormatError,
-    KmerReference,
-    not_ported,
-)
+from shotgun_tpu_torch.parallel import distributed
+from shotgun_tpu_torch.parallel.mesh import Mesh
+from shotgun_tpu_torch.reference import PROBE_ENV, KDBFormatError, KmerReference
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.profiling import PROFILER, phase
 
@@ -203,15 +205,18 @@ def create_alignment_from_reference(
     m: int, p: int, min_read_quality: Optional[int],
     min_kmer_quality: Optional[int], max_genomes: Optional[int],
     batch_size: int = DEFAULT_BATCH_SIZE, store_reads: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> PseudoAlignment:
     """The stream route (native fill, validation inside the fill); an
     input the native scanner rejects is re-read through the regex engine,
     which raises the reference's exact errors.  ``store_reads``: the align
-    task's read store."""
+    task's read store.  With a ``mesh`` (dumpalign only), the JAX CLI's
+    mesh route: the reads parsed whole (the container route), every
+    process holding the batch, and aligned sharded over the mesh."""
     gates = (min_read_quality, min_kmer_quality, max_genomes)
     with phase("table_build"):
         kmer_reference.device_probe_tables(device)
-    stream = open_fastq_stream(reads_file, lazy=True)
+    stream = None if mesh is not None else open_fastq_stream(reads_file, lazy=True)
     if stream is not None:
         alignment = PseudoAlignment(kmer_reference, device)
         try:
@@ -228,11 +233,18 @@ def create_alignment_from_reference(
     with phase("align", items=reads_container.num_records):
         alignment.align_reads_from_container(
             reads_container, m, p, *gates, batch_size=batch_size,
-            store_reads=store_reads)
+            store_reads=store_reads, mesh=mesh)
     return alignment
 
 
-def _print_summary(alignment: PseudoAlignment) -> None:
+def _print_summary(alignment: PseudoAlignment, mesh: Optional[Mesh] = None) -> None:
+    """The dumpalign JSON; under a mesh only from process 0 (every process
+    holds the same merged result), after the C-level stdio buffers, where
+    a collective backend may have written, are flushed."""
+    if mesh is not None:
+        if not distributed.is_primary():
+            return
+        ctypes.CDLL(None).fflush(None)
     print(json.dumps(alignment.get_summary(), indent=4), flush=True)
 
 
@@ -272,20 +284,27 @@ def _validate_task(args: argparse.Namespace) -> None:
         sys.exit("Error: Unsupported task.")
 
 
-def _refuse_multi_process() -> None:
-    """dumpalign reads ``SHOTGUN_TPU_NPROCS`` as the JAX package's does
-    (its ``parallel/distributed.py initialize_from_env``); more than one
-    process is not ported yet, and each process would print a summary."""
-    nprocs = os.environ.get("SHOTGUN_TPU_NPROCS")
-    if nprocs and int(nprocs) > 1:
-        raise not_ported(f"SHOTGUN_TPU_NPROCS={nprocs} (multi-process runs)", 5)
+def _dumpalign_mesh(device: torch.device) -> Tuple[Optional[Mesh], torch.device]:
+    """dumpalign's mesh from the environment, as the JAX CLI's (its
+    ``cli.py:458-464``), and the device this process computes on; with
+    ``--profile`` the mesh is reported on stderr."""
+    mesh = distributed.initialize_from_env()
+    if mesh is None:
+        return None, device
+    if PROFILER.enabled:
+        backend = (torch.distributed.get_backend(mesh.group) if mesh.group is not None
+                   else "none")
+        print(f"mesh: {mesh.shape}, devices {[str(d) for d in mesh.devices]}, "
+              f"backend {backend}", file=sys.stderr, flush=True)
+    return mesh, mesh.devices[0]
 
 
 def _run_task(args: argparse.Namespace, device: torch.device) -> None:
     gates = (args.unique_threshold, args.ambiguous_threhold,
              args.min_read_quality, args.min_kmer_quality, args.max_genomes)
+    mesh = None
     if args.task == "dumpalign":
-        _refuse_multi_process()
+        mesh, device = _dumpalign_mesh(device)
     if args.task == "reference":
         validate_file_readable(args.genomefile, "Genome FASTA")
         validate_file_writable(args.referencefile, "Reference database output")
@@ -324,15 +343,17 @@ def _run_task(args: argparse.Namespace, device: torch.device) -> None:
         validate_file_readable(args.reads, "FASTQ reads")
         _print_summary(create_alignment_from_reference(
             load_reference(args.referencefile, device), args.reads, device, *gates,
-            batch_size=args.batch_size))
+            batch_size=args.batch_size, mesh=mesh), mesh)
     elif args.genomefile and args.kmer_size and args.reads:
         validate_file_readable(args.reads, "FASTQ reads")
         validate_file_readable(args.genomefile, "Genome FASTA")
+        # under a mesh the database is built on the host, as in the JAX
+        # CLI (its device build is single-device)
+        build = create_reference if mesh is not None else dumpalign_reference
         _print_summary(create_alignment_from_reference(
-            dumpalign_reference(args.genomefile, args.kmer_size,
-                                args.filter_similar, args.similarity_threshold,
-                                device),
-            args.reads, device, *gates, batch_size=args.batch_size))
+            build(args.genomefile, args.kmer_size, args.filter_similar,
+                  args.similarity_threshold, device),
+            args.reads, device, *gates, batch_size=args.batch_size, mesh=mesh), mesh)
     else:
         validate_file_readable(args.alignfile, "Alignment output")
         try:
@@ -373,6 +394,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         sys.exit(f"Error: {err}")
     finally:
         PROFILER.report()
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -169,9 +169,11 @@ def encode_window(
              if qual is not None else None)
     lib = load_library()
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    status = lib.stt_encode_window(
-        ptr(packed), ptr(qual), ptr(keys), ptr(qsums), rows, length, k,
-        device.index, torch.cuda.current_stream(device).cuda_stream)
+    # the launch sets the device; the guard gives the caller's back
+    with torch.cuda.device(device):
+        status = lib.stt_encode_window(
+            ptr(packed), ptr(qual), ptr(keys), ptr(qsums), rows, length, k,
+            device.index, torch.cuda.current_stream(device).cuda_stream)
     check_status(lib, status, "encode_window")
     encode_window.launches += 1
     mode = "keys+sums" if keys is not None and qsums is not None else (

@@ -145,12 +145,14 @@ def hash_probe(table: torch.Tensor, stash: torch.Tensor, keys: torch.Tensor
     outs = [torch.empty(keys.shape, dtype=torch.int32, device=device)
             for _ in range(3)]
     lib = load_library()
-    status = lib.stt_hash_probe(
-        keys.data_ptr(), table.data_ptr(), table.shape[0], table.shape[1],
-        stash.data_ptr() if stash.shape[0] else None, stash.shape[0],
-        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-        keys.numel(), device.index,
-        torch.cuda.current_stream(device).cuda_stream)
+    # the launch sets the device; the guard gives the caller's back
+    with torch.cuda.device(device):
+        status = lib.stt_hash_probe(
+            keys.data_ptr(), table.data_ptr(), table.shape[0], table.shape[1],
+            stash.data_ptr() if stash.shape[0] else None, stash.shape[0],
+            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+            keys.numel(), device.index,
+            torch.cuda.current_stream(device).cuda_stream)
     check_status(lib, status, "hash_probe")
     hash_probe.launches += 1
     hash_probe.launches_by_mode[f"{table.shape[1]}-slot"] += 1

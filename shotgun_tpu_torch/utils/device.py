@@ -3,6 +3,7 @@
 The CLI reads ``SHOTGUN_TPU_TORCH_DEVICE`` (default ``cuda``).  Asking for
 CUDA on a machine without it raises: the port never carries on silently
 on the CPU.  Library callers and tests pass their device explicitly.
+``upload`` moves a host array to a device.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DEVICE_ENV = "SHOTGUN_TPU_TORCH_DEVICE"
@@ -29,3 +31,14 @@ def resolve_device(name: Optional[Union[str, torch.device]] = None) -> torch.dev
     if device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device '{name}' (cuda or cpu)")
     return device
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: on CUDA staged in pinned memory and
+    copied without blocking (the caching host allocator keeps the pinned
+    block alive until the copy has run); on the CPU the array's own
+    memory."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

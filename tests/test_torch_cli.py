@@ -3,7 +3,7 @@ stdout to every recorded golden (the 16 cases of tests/golden, dumpalign on
 every probe route and on the device database build, and the runlog cases
 at k = 31, 75 and 150), a .kdb written by the JAX package's CLI, the
 device-build gate, the probe routes at k > 31 and for unknown values, k < 1,
-the multi-process refusal, the error contracts of tests/test_cli.py, a
+the multi-process environment and the one-process mesh, the error contracts of tests/test_cli.py, a
 guard that the port runs with jax and the JAX package unimportable, and the
 library entry points' default device."""
 
@@ -427,15 +427,30 @@ def test_k_below_1_with_mkq_fails_in_both_clis(route, tmp_path, capsys):
 @pytest.mark.parametrize("task", [["-t", "dumpalign", "-g", FA, "-k", "11", "--reads", FQ],
                                   ["-t", "dumpalign", "-a", "x.aln"]])
 def test_multi_process_dumpalign_is_not_ported(task, monkeypatch, capsys):
-    """SHOTGUN_TPU_NPROCS > 1 (a multi-process dumpalign, where only the
-    first process may print) is refused, before any input is read;
-    NPROCS=1 is one process."""
+    """The multi-process dumpalign is ported (tests/test_torch_distributed.py
+    runs two processes): SHOTGUN_TPU_NPROCS=2 without SHOTGUN_TPU_PROC_ID
+    raises KeyError, as in the JAX CLI, before any input is read; NPROCS=1
+    is one process."""
     monkeypatch.setenv("SHOTGUN_TPU_NPROCS", "2")
-    msg = _exit_message(capsys, task)
-    assert "SHOTGUN_TPU_NPROCS=2" in msg and "not yet ported" in msg
+    monkeypatch.delenv("SHOTGUN_TPU_PROC_ID", raising=False)
+    for main in (cli.main, jax_cli.main):
+        with pytest.raises(KeyError, match="SHOTGUN_TPU_PROC_ID"):
+            main(task)
     monkeypatch.setenv("SHOTGUN_TPU_NPROCS", "1")
     cli.main(_args("plain"))
     assert capsys.readouterr().out == _golden("plain")
+
+
+@pytest.mark.parametrize("name", ["plain", "mrq", "combo", "mg1"])
+def test_one_process_mesh_matches_golden(name, monkeypatch, capsys, stages):
+    """SHOTGUN_TPU_MESH=data: one process's mesh over the local devices
+    (the CPU here), the JAX CLI's mesh route (the reads parsed whole and
+    aligned by align_packed_reads, the database of -g built on the host)."""
+    monkeypatch.setenv("SHOTGUN_TPU_MESH", "data")
+    cli.main(_args(name) + ["--batch-size", "16", "--profile"])
+    assert capsys.readouterr().out == _golden(name)
+    assert {"db_build", "fastq_parse", "align"} <= set(stages)
+    assert "stream_align" not in stages and "db_build_device" not in stages
 
 
 def test_filter_similar_at_256_genomes_matches_jax(tmp_path, capsys):
@@ -469,6 +484,8 @@ sys.modules["shotgun_tpu"] = None  # and so does any import of the JAX package
 import shotgun_tpu_torch
 for mod in pkgutil.walk_packages(shotgun_tpu_torch.__path__, "shotgun_tpu_torch."):
     __import__(mod.name)
+import shotgun_tpu_torch.parallel.distributed, shotgun_tpu_torch.parallel.mesh
+import shotgun_tpu_torch.parallel.table_sharded, shotgun_tpu_torch.tools.dryrun
 # every import chip_smoke.py makes, at its top and inside its functions
 with open("chip_smoke.py") as fh:
     for node in ast.walk(ast.parse(fh.read())):
@@ -480,6 +497,9 @@ assert native.library_path() == os.path.join(os.getcwd(), "build", "host",
                                              "libshotgun_tpu_torch_io.so")
 fa, fq = sys.argv[1:3]
 main(sys.argv[3:])  # the plain golden
+os.environ["SHOTGUN_TPU_MESH"] = "data"  # again over a one-process mesh
+main(sys.argv[3:])
+del os.environ["SHOTGUN_TPU_MESH"]
 with tempfile.TemporaryDirectory() as tmp:  # reference -> align -> dumpalign -a
     kdb, aln = os.path.join(tmp, "c.kdb"), os.path.join(tmp, "c.aln")
     main(["-t", "reference", "-g", fa, "-k", "11", "-r", kdb])
@@ -493,11 +513,12 @@ assert not loaded, loaded
 
 
 def test_runs_with_jax_unimportable(capsys):
-    """With jax and the JAX package unimportable, every port module and
-    every import of chip_smoke.py loads, the native library is the
-    port's own under build/host/, and the CLI prints the plain golden,
-    directly and through reference -> align -> dumpalign -a, and the JAX
-    CLI's stdout at k = 35."""
+    """With jax and the JAX package unimportable, every port module (the
+    parallel modules and tools/dryrun named) and every import of
+    chip_smoke.py loads, the native library is the port's own under
+    build/host/, and the CLI prints the plain golden, directly, over a
+    one-process mesh and through reference -> align -> dumpalign -a, and
+    the JAX CLI's stdout at k = 35."""
     jax_cli.main(K35)
     k35 = capsys.readouterr().out
     env = dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cpu")
@@ -505,7 +526,7 @@ def test_runs_with_jax_unimportable(capsys):
         [sys.executable, "-c", _NO_JAX, FA, FQ] + _args("plain"),
         cwd=REPO, capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout == _golden("plain") * 2 + k35
+    assert out.stdout == _golden("plain") * 3 + k35
 
 
 ENTRY_POINTS = {
