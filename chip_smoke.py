@@ -107,7 +107,31 @@ Phases, one line each:
         on the strain panel, both on cuda:0 over gloo: process 0's stdout
         ends in phase 6's, process 1 prints no summary;
      e. ``tools/dryrun.py dryrun_multichip(4)``.
-     Each path's wall, reads/s, peak device memory and kernel launches.
+     Each path's wall, reads/s, peak device memory and kernel launches;
+ 12. 100 Mbp, the JAX repo's proven scale (``tools/devbuild_proof.py`` and
+     ``tools/bulk_proof.py`` at their defaults):
+     a. 64 random genomes of 1.5625 Mbp built on the card (at least
+        P12_MIN_KEYS distinct 31-mers; the auto table under the default
+        budget printed), 262,144 reads at B = P12_BATCH, the cross-check
+        against the host build; the same genomes built again with
+        $SHOTGUN_TPU_HASH_HBM_BUDGET at P12_BUDGET, so that the 16-slot
+        table of P12_BUCKETS buckets exists: its summary equal to the
+        first's, H2 launched; each route's reads/s, device ms a batch and
+        idle share (``tools/profile_align.py``'s measures); H1 on the genome
+        as one row and H2 on that table against their plain versions;
+     b. part a: 16 random genomes of 6.25 Mbp built on the host, the sort
+        table uploaded, 1,048,576 reads as a FASTQ streamed twice on the
+        auto route (the host-built 16-slot table), 64 sampled reads against
+        ``Read.pseudo_align``; the reference saved as a .kdb and `-t
+        dumpalign -r` of it on the FASTQ in a child process, whose stdout
+        must equal the library's summary (its kdb_load, table_build and
+        stream_align stages printed); the host's RAM and the free disk
+        (P12_DISK needed) first;
+     c. part b: k = 75 at 16.8M keys, the sharded probe on a 1 x 1 mesh
+        equal to the unsharded one.
+     Each stage's wall, peak device memory, peak resident memory of this
+     process (and of 12b's child, sampled from outside), and kernel
+     launches.
 
 Then one JSON line of per-kernel results and, last, the device line.  Any
 failure raises and exits non-zero; so does a machine without CUDA, and a
@@ -122,10 +146,12 @@ device build's window encode and the batches, with the MKQ gate, so keys
 and sums together); each timed mode carries its own main-path launches,
 and the multi-word mode the H1 launches of phase 9's MKQ run, its path.
 Kernel H2's entry likewise gives the 16-slot table (the main path's) and
-the 4-slot one (launched on the `hash` routes) as two modes.
+the 4-slot one (launched on the `hash` routes) as two modes.  Phase 12
+adds a mode to each: H1 on the 100 Mbp genome row and H2 on its 2^25-bucket
+table, with their launches on 12a's hash16 path (build, assembly, align).
 Each kernel's launches on every path (the main path, the strain-panel
-routes, the later phases' runs and phase 11's mesh paths, each counted
-from 0) are listed too.  No single
+routes, the later phases' runs, phase 11's mesh paths and phase 12's
+stages, each counted from 0) are listed too.  No single
 PyTorch call computes either kernel's function, so ``library_ms`` is
 null, with the reason beside it.
 """
@@ -198,6 +224,15 @@ RUNLOG = os.path.join(GOLDEN, "runlog")
 #: the runlog dumpalign cases of multi-word keys (k = 75 and 150)
 RUNLOG_WORD_CASES = ["rl-small-k75-m1p1", "rl-small-k75-m5p5",
                      "rl-mid-k150-flags", "rl-mid-k150-mg0"]
+#: phase 12: the proofs' batch; the least distinct 31-mers of its 100 Mbp
+#: builds; the buckets of their 16-slot table (8.6 GB) and the device budget
+#: of 12a's second route, which holds it; the free bytes 12b needs for its
+#: FASTQ (~0.33 GB) and .kdb (~4 GB)
+P12_BATCH = 16384
+P12_MIN_KEYS = 99_000_000
+P12_BUCKETS = 1 << 25
+P12_BUDGET = 16_000_000_000
+P12_DISK = 6_000_000_000
 PALLAS = "shotgun_tpu/ops/pallas/kernels.py"
 CSRC = "shotgun_tpu_torch/ops/kernels/csrc"
 
@@ -1189,7 +1224,8 @@ def phase_packed() -> dict:
     return by_path
 
 
-#: phase 11d's child: the port's CLI, then its kernel launches on stderr
+#: the child of phases 11d and 12b: the port's CLI, then its kernel
+#: launches on stderr
 CLI_CHILD = r"""
 import json, sys
 from shotgun_tpu_torch.cli import main
@@ -1286,13 +1322,23 @@ def two_process_cli(argv, strain_out: str) -> tuple:
     if "{" in outs[1][0]:
         raise AssertionError("11d: process 1 printed a summary")
     backend = outs[0][1].split("backend ", 1)[1].split()[0]
+    launches = [child_launches(err) for _, err in outs]
+    return wall, backend, profile_stages(outs[0][1]), launches
+
+
+def profile_stages(stderr: str) -> dict:
+    """{stage: seconds} of a CLI run's ``--profile`` report on stderr."""
     stages = {}
-    for line in outs[0][1].split("=== profile ===", 1)[1].splitlines():
+    for line in stderr.split("=== profile ===", 1)[1].splitlines():
         fields = line.split()
         if len(fields) >= 3 and fields[2] == "ms":
             stages[fields[0]] = float(fields[1]) / 1e3
-    launches = [json.loads(err.rsplit("launches ", 1)[1].splitlines()[0]) for _, err in outs]
-    return wall, backend, stages, launches
+    return stages
+
+
+def child_launches(stderr: str) -> dict:
+    """The kernel launches CLI_CHILD reports on stderr."""
+    return json.loads(stderr.rsplit("launches ", 1)[1].splitlines()[0])
 
 
 def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: int,
@@ -1408,6 +1454,282 @@ def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: i
     return by_path
 
 
+def host_memory() -> str:
+    """The host's RAM, total and available, from /proc/meminfo."""
+    with open("/proc/meminfo") as fh:
+        info = dict(line.split(":", 1) for line in fh)
+    return "host RAM %d B, %d B available" % tuple(
+        int(info[name].split()[0]) * 1024 for name in ("MemTotal", "MemAvailable"))
+
+
+def peak_rss() -> int:
+    """Peak resident bytes of this process (``getrusage``'s ru_maxrss)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def rss_bytes(pid: int):
+    """Resident bytes of process ``pid`` (``/proc/<pid>/statm``), None where
+    the host's ``/proc`` gives none."""
+    try:
+        with open(f"/proc/{pid}/statm") as fh:
+            return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def run_watching_rss(cmd: list, timeout: float, **kw) -> tuple:
+    """``cmd`` run to its end, its resident memory sampled from this
+    process every 0.1 s (a child's own ``getrusage`` peak starts from its
+    parent's across fork + exec): (CompletedProcess with text stdout and
+    stderr, the largest sample in bytes or None)."""
+    with tempfile.TemporaryFile("w+") as out, tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True, **kw)
+        peak, deadline = None, time.monotonic() + timeout
+        try:
+            while proc.poll() is None:
+                if time.monotonic() > deadline:
+                    raise subprocess.TimeoutExpired(cmd, timeout)
+                rss = rss_bytes(proc.pid)
+                if rss is not None:
+                    peak = max(peak or 0, rss)
+                time.sleep(0.1)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        err.seek(0)
+        return subprocess.CompletedProcess(cmd, proc.returncode, out.read(), err.read()), peak
+
+
+def phase_100mbp_devbuild(tmp: str, device) -> tuple:
+    """Phase 12a: ``devbuild_proof`` at its defaults (the sort join under
+    the default budget), the same genomes built again with the budget at
+    P12_BUDGET (the 2^25-bucket 16-slot table, H2), equal summaries; each
+    route's profile; H1 on the genome row and H2 on that table against
+    their plain versions.  Returns ({path: launches}, H1 mode, H2 mode)."""
+    import torch
+
+    from shotgun_tpu_torch.index.device_build import HBM_BUDGET_ENV, _host_prep
+    from shotgun_tpu_torch.ops.encode import encode_window, encode_window_plain, pack_codes_2bit
+    from shotgun_tpu_torch.ops.probe import hash_probe, hash_probe_plain
+    from shotgun_tpu_torch.reference import KmerReference
+    from shotgun_tpu_torch.tools import devbuild_proof
+    from shotgun_tpu_torch.tools.bench_encode import bound_ms, h1_bytes
+    from shotgun_tpu_torch.tools.bench_probe import h2_bytes
+    from shotgun_tpu_torch.tools.profile_align import profile_route
+    from shotgun_tpu_torch.utils.synth import write_fastq
+
+    def log(msg):
+        say("  12a " + msg)
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = devbuild_proof.run(device=device, log=log)
+    by_path = {"12a devbuild_proof (sort join, default budget)": read_launches()}
+    sort_peak = torch.cuda.max_memory_allocated()
+    if res["num_kmers"] < P12_MIN_KEYS:
+        raise AssertionError(f"12a: {res['num_kmers']} distinct 31-mers < {P12_MIN_KEYS}")
+    genomes, reads, ref = res["genomes"], res["reads"], res["ref"]
+    parts = ["devbuild_proof: %d distinct 31-mers, device build cold %.3f s, warm %.3f s; "
+             "auto table under the default budget: %s (%s, %d B); align %.3f s = %.0f "
+             "reads/s; cross-check passed; launches %s; peak device memory %d B" % (
+                 res["num_kmers"], res["build_cold_s"], res["build_warm_s"],
+                 res["table"]["type"], res["table"]["method"], res["table"]["bytes"],
+                 res["align"]["seconds"], res["align"]["reads_per_s"],
+                 by_path["12a devbuild_proof (sort join, default budget)"], sort_peak)]
+
+    # the same genomes with the budget raised before the first table call:
+    # build, assembly and align counted from 0, as phase 5 counts its path
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    encode_window.launches_by_mode.clear()
+    hash_probe.launches_by_mode.clear()
+    saved = os.environ.get(HBM_BUDGET_ENV)
+    os.environ[HBM_BUDGET_ENV] = str(P12_BUDGET)
+    try:
+        ref16 = KmerReference.from_device_build(genomes, K, device)
+        table = devbuild_proof.probe_table(ref16, device, log)
+    finally:
+        os.environ.pop(HBM_BUDGET_ENV)
+        if saved is not None:
+            os.environ[HBM_BUDGET_ENV] = saved
+    if table["method"] != "hash16" or table["shape"][:2] != [P12_BUCKETS, 16]:
+        raise AssertionError(f"12a: budget {P12_BUDGET}: table {table}")
+    al16 = devbuild_proof.align(ref16, reads, device, P12_BATCH, log)
+    launches16 = read_launches()
+    by_path["12a hash16 (budget raised)"] = launches16
+    row_launches = encode_window.launches_by_mode["keys, one row"]
+    table_launches = hash_probe.launches_by_mode["16-slot"]
+    if row_launches != 1 or table_launches <= 0 or launches16["encode_window"] <= 1:
+        raise AssertionError(f"12a hash16: launches {launches16}, by mode "
+                             f"{dict(encode_window.launches_by_mode)}")
+    if al16["summary"] != res["align"]["summary"]:
+        raise AssertionError("12a: the sort and hash16 summaries differ")
+    parts.append("budget %d: hash16 table %s (%d B) assembled in %.3f s, align %.3f s = "
+                 "%.0f reads/s, launches %s, peak device memory %d B; summary == sort's" % (
+                     P12_BUDGET, table["shape"], table["bytes"], table["seconds"],
+                     al16["seconds"], al16["reads_per_s"], launches16,
+                     torch.cuda.max_memory_allocated()))
+    fq = os.path.join(tmp, "devbuild.fq")
+    write_fastq(fq, reads.codes)
+    for name, r in (("sort", ref), ("hash16", ref16)):
+        prof = profile_route(r, fq, device, P12_BATCH)
+        parts.append("%s route, the reads streamed from a FASTQ: %.0f reads/s, device "
+                     "pipeline alone %.3f ms a batch of %d, profiled stream %.3f ms with the "
+                     "device busy %.3f ms: idle share %.4f" % (
+                         name, prof["stream_reads_per_s"], prof["device_ms_per_batch"],
+                         P12_BATCH, prof["wall_ms"], prof["busy_ms"], prof["idle_share"]))
+    os.remove(fq)
+
+    # H1 on the 100 Mbp genome row, H2 on the 2^25-bucket table
+    row_d = torch.from_numpy(_host_prep(genomes)[0]).to(device)[None]
+    err_row = max_abs_err([encode_window(row_d, K)[0]], [encode_window_plain(row_d, K)[0]])
+    w = row_d.shape[1] * 4 - K + 1
+    row_ms, row_plain_ms = timed(lambda: encode_window(row_d, K),
+                                 lambda: encode_window_plain(row_d, K), w * 8, 20, 3)
+    row_bytes = h1_bytes(1, row_d.shape[1], K, True, False)
+    del row_d
+    tab16 = ref16.device_probe_tables(device)
+    padded = np.zeros((P12_BATCH, LPAD), dtype=np.uint8)
+    padded[:, :READ_LEN] = reads.codes[:P12_BATCH]
+    keys, _ = encode_window(torch.from_numpy(pack_codes_2bit(padded)).to(device), K)
+    args = (tab16.table, tab16.stash, keys)
+    err_probe = max_abs_err(hash_probe(*args), hash_probe_plain(*args))
+    h2_nbytes, buckets = h2_bytes(*args)
+    probe_ms, probe_plain_ms = timed(lambda: hash_probe(*args),
+                                     lambda: hash_probe_plain(*args), keys.numel() * 12, 100)
+    if max(err_row, err_probe) != 0:
+        raise AssertionError(f"12a kernel != plain: H1 row {err_row}, H2 {err_probe}")
+    h1_mode = {"shape": f"[1, {genomes.codes.size}] (100 Mbp genome as one row)",
+               "mode": "keys, one row, 100 Mbp", "bytes": row_bytes,
+               "bound_ms": bound_ms(row_bytes), "bound_share": bound_ms(row_bytes) / row_ms,
+               "ms": row_ms, "plain_ms": row_plain_ms, "library_ms": None,
+               "max_abs_err": err_row, "launches_100mbp": row_launches}
+    h2_mode = {"shape": f"{keys.numel()} probes into {tuple(tab16.table.shape)}",
+               "mode": "16-slot, 2^25 buckets, 100 Mbp", "bytes": h2_nbytes,
+               "bound_ms": bound_ms(h2_nbytes), "bound_share": bound_ms(h2_nbytes) / probe_ms,
+               "ms": probe_ms, "plain_ms": probe_plain_ms, "library_ms": None,
+               "max_abs_err": err_probe, "distinct_buckets": buckets,
+               "stash_rows": tab16.stash.shape[0], "launches_100mbp": table_launches}
+    parts += ["H1 %s == plain: %.4f ms vs plain %.4f ms, %d B, bound %.4f ms, %.1f%% of it" % (
+                  h1_mode["shape"], row_ms, row_plain_ms, row_bytes, h1_mode["bound_ms"],
+                  100 * h1_mode["bound_share"]),
+              "H2 %s == plain (stash %d rows): %.4f ms vs plain %.4f ms, %d B (%d distinct "
+              "rows), bound %.4f ms, %.1f%% of it" % (
+                  h2_mode["shape"], h2_mode["stash_rows"], probe_ms, probe_plain_ms,
+                  h2_nbytes, buckets, h2_mode["bound_ms"], 100 * h2_mode["bound_share"])]
+    say("phase 12a 100 Mbp device build (%.3f s): %s; host peak RSS %d B" % (
+        time.perf_counter() - t_phase, "; ".join(parts), peak_rss()))
+    return by_path, h1_mode, h2_mode
+
+
+def phase_100mbp_bulk(tmp: str, device) -> dict:
+    """Phase 12b: ``bulk_proof`` part a (host build, the host 16-slot
+    table, the stream twice, 64 sampled reads), the reference saved as a
+    ``.kdb`` and ``-t dumpalign -r`` of it on the FASTQ in a CLI child,
+    whose stdout must be the library's summary.  Returns {path: launches}."""
+    import gc
+
+    import torch
+
+    from shotgun_tpu_torch.tools import bulk_proof
+
+    def log(msg):
+        say("  12b " + msg)
+
+    free = shutil.disk_usage(tmp).free
+    say("phase 12b: %s; %d B free in %s" % (host_memory(), free, tmp))
+    if free < P12_DISK:
+        raise AssertionError(f"12b needs {P12_DISK} B free in {tmp} for the FASTQ and "
+                             f"the .kdb, has {free}")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    a = bulk_proof.part_a(tmp, device, log=log)
+    by_path = {"12b bulk_proof part a (host hash16)": read_launches()}
+    lib_peak = torch.cuda.max_memory_allocated()
+    if a["num_kmers"] < P12_MIN_KEYS or a["table"]["method"] != "hash16":
+        raise AssertionError(f"12b: {a['num_kmers']} k-mers, route {a['table']['method']}")
+    if min(by_path["12b bulk_proof part a (host hash16)"].values()) <= 0:
+        raise AssertionError(f"12b: launches {by_path}")
+    lib_wall = time.perf_counter() - t_phase
+    kdb = os.path.join(tmp, "bulk.kdb")
+    t0 = time.perf_counter()
+    a["ref"].save(kdb)
+    save_s, kdb_bytes = time.perf_counter() - t0, os.path.getsize(kdb)
+    want = json.dumps(a["summary"], indent=4) + "\n"
+    del a["ref"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc, child_rss = run_watching_rss(
+        [sys.executable, "-c", CLI_CHILD, "-t", "dumpalign", "-r", kdb, "--reads",
+         a["fastq"], "--profile"], 900, cwd=HERE,
+        env=dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cuda"))
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"12b CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    if proc.stdout != want:
+        raise AssertionError("12b: the CLI's dumpalign -r stdout != the library summary")
+    stages = profile_stages(proc.stderr)
+    by_path["12b CLI dumpalign -r .kdb"] = cli = child_launches(proc.stderr)
+    if cli["encode_window"] <= 0 or cli["hash_probe"] <= 0:
+        raise AssertionError(f"12b CLI: launches {cli}")
+    os.remove(kdb)
+    os.remove(a["fastq"])
+    n = a["reads"]
+    say("phase 12b 100 Mbp host build (%.3f s): %d distinct 31-mers, %d sets; library: "
+        "host build %.3f s, sort table prep + upload %.3f s (%d B), FASTQ %.3f s (%d B), "
+        "host 16-slot table %.3f s (%d B), stream warm %.3f s, timed %.3f s = %.0f reads/s, "
+        "%d/%d sampled reads == Read.pseudo_align (%.3f s), wall %.3f s, peak device "
+        "memory %d B, launches %s; .kdb %d B written in %.3f s; CLI dumpalign -r .kdb "
+        "--reads (a child): stdout == the library summary, wall %.3f s, kdb_load %.3f s, "
+        "table_build %.3f s, stream_align %.3f s = %.0f reads/s, launches %s, peak RSS %s "
+        "(sampled from outside every 0.1 s); host peak RSS %d B; %s" % (
+            time.perf_counter() - t_phase, a["num_kmers"], a["num_sets"], a["host_build_s"],
+            a["sort_table"]["seconds"], a["sort_table"]["bytes"], a["fastq_s"],
+            a["fastq_bytes"], a["table"]["seconds"], a["table"]["bytes"],
+            a["stream_warm_s"], a["stream_timed_s"], n / a["stream_timed_s"],
+            a["sampled"] - a["mismatches"], a["sampled"], a["sample_s"], lib_wall, lib_peak,
+            by_path["12b bulk_proof part a (host hash16)"], kdb_bytes, save_s, cli_wall,
+            stages["kdb_load"], stages["table_build"], stages["stream_align"],
+            n / stages["stream_align"], cli,
+            "not measured" if child_rss is None else f"{child_rss} B", peak_rss(),
+            host_memory()))
+    return by_path
+
+
+def phase_100mbp_words(device) -> dict:
+    """Phase 12c: ``bulk_proof`` part b (k = 75, the sharded probe on a
+    1 x 1 mesh equal to the unsharded one).  Returns {path: launches}."""
+    import torch
+
+    from shotgun_tpu_torch.tools import bulk_proof
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    b = bulk_proof.part_b(device, log=lambda msg: say("  12c " + msg))
+    launches = read_launches()
+    if launches["encode_window"] <= 0 or launches["hash_probe"] != 0:
+        raise AssertionError(f"12c: launches {launches}")
+    say("phase 12c k=75 at %d keys (%.3f s): host build %.3f s, sharded table %d B "
+        "uploaded in %.3f s, sharded probe %.3f s; sharded == unsharded in every field; "
+        "launches %s, peak device memory %d B; host peak RSS %d B" % (
+            b["num_kmers"], time.perf_counter() - t0, b["host_build_s"],
+            b["sharded_table"]["bytes"], b["sharded_table"]["seconds"], b["sharded_s"],
+            launches, torch.cuda.max_memory_allocated(), peak_rss()))
+    return {"12c bulk_proof part b (k=75, 1 x 1 mesh)": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1517,10 +1839,23 @@ def main() -> int:
 
         # 11. the multi-device paths, several shards on the one card
         by_path.update(phase_mesh(fa, fq, sfa, sfq, main_out, main_peak, strain_out, device))
+        torch.cuda.empty_cache()
+
+        # 12. the JAX repo's proven scale: 100 Mbp, about 100M 31-mers
+        t12 = time.perf_counter()
+        paths12, h1_100mbp, h2_100mbp = phase_100mbp_devbuild(tmp, device)
+        by_path.update(paths12)
+        torch.cuda.empty_cache()
+        by_path.update(phase_100mbp_bulk(tmp, device))
+        torch.cuda.empty_cache()
+        by_path.update(phase_100mbp_words(device))
+        say(f"phase 12 in {time.perf_counter() - t12:.3f} s")
     torch.cuda.empty_cache()
 
     word_launches = words_by_path[
         f"k={K_WORDS} strains dumpalign -g, random quality, MKQ {WORD_MKQ}"]
+    kernels[0]["modes"].append(h1_100mbp)
+    kernels[1]["modes"].append(h2_100mbp)
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]
         kr["launches_by_path"] = {p: n[kr["name"]] for p, n in by_path.items()}

@@ -193,7 +193,11 @@ class Read:
         else:
             hits = np.full(keys.size, -1, dtype=np.int64)
 
-        genome_counts = idx.genome_counts()
+        # the genome counts of the hit k-mers only: idx.genome_counts() is
+        # a gather over every k-mer of the index
+        hit_ids = hits[hits >= 0]
+        genome_counts = dict(zip(hit_ids.tolist(),
+                                 idx.set_sizes[idx.set_id[hit_ids]].tolist()))
         qual_ord = np.frombuffer(self._qual.encode("ascii"), dtype=np.uint8).astype(np.int32)
         qual_cs = np.concatenate([[0], np.cumsum(qual_ord)])
 

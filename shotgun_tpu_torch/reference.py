@@ -227,8 +227,8 @@ class KmerReference:
         return self._records
 
     def _encode_query(self, kmer: str) -> Optional[int]:
-        """k-mer string -> k-mer id, or None on a miss or a non-ACGT base."""
-        self._require_host_index("k-mer lookups")
+        """k-mer string -> k-mer id, or None on a miss or a non-ACGT base
+        (found so without the index, also on a device-built reference)."""
         if len(kmer) != self.index.k:
             return None
         raw = np.frombuffer(kmer.encode("ascii", errors="replace"), dtype=np.uint8)
@@ -242,17 +242,26 @@ class KmerReference:
                              for j in range(num_key_words(self.index.k))],
                             dtype=np.uint32)[None, :]
         key = sort_keys_from_words(qwords)[0]
+        self._require_host_index("k-mer lookups")
         keys = self.index.sort_keys()
         pos = int(np.searchsorted(keys, key))
         if pos < keys.size and keys[pos] == key:
             return pos
         return None
 
+    def __getitem__(self, kmer: str) -> Optional[Dict[SeqRecord, Set[int]]]:
+        """{genome record: positions} of one k-mer; None when it cannot be
+        encoded (another length than k, a base other than ACGT) or is not
+        in the index (the JAX package's ``ref[kmer]``)."""
+        kid = self._encode_query(kmer)
+        return None if kid is None else self._kmer_mapping(kid)
+
     def get_kmer_references(self, kmer: str) -> Dict[SeqRecord, Set[int]]:
         """{genome record: positions} of one k-mer, {} when absent."""
         kid = self._encode_query(kmer)
-        if kid is None:
-            return {}
+        return {} if kid is None else self._kmer_mapping(kid)
+
+    def _kmer_mapping(self, kid: int) -> Dict[SeqRecord, Set[int]]:
         recs = self._materialized_records()
         return {recs[r]: set(int(x) for x in self.index.positions_of(kid, r))
                 for r in self.index.records_of_kmer(kid)}

@@ -90,6 +90,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def table_bytes(tab) -> int:
+    """Bytes of a probe table's tensors (a sort table's key words too)."""
+    tensors = [x for t in tab for x in (t if isinstance(t, tuple) else (t,))]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _median_s(fn: Callable[[], None], repeats: int, device: torch.device) -> float:
     times = []
     for _ in range(repeats):
@@ -101,7 +107,8 @@ def _median_s(fn: Callable[[], None], repeats: int, device: torch.device) -> flo
     return statistics.median(times)
 
 
-def _stream_align(ref, fastq, device, batch, mkq=None) -> PseudoAlignment:
+def stream_align(ref, fastq, device, batch, mkq=None) -> PseudoAlignment:
+    """``align_stream`` of the FASTQ ``fastq`` on the native stream route."""
     stream = open_fastq_stream(fastq, lazy=True)
     if stream is None:
         raise RuntimeError("the native stream route cannot read " + fastq)
@@ -164,6 +171,27 @@ def _profiled(fn: Callable[[], None], device: torch.device, out: Optional[str],
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "device_ms_by_name": device_ms_by_name(events)}
+
+
+def profile_route(ref, fastq: str, device: torch.device, batch: int,
+                  repeats: int = 3) -> dict:
+    """The measures of ``main`` for ``ref``'s route on the reads of
+    ``fastq`` at ``batch``: the stream's reads/s (median of ``repeats``),
+    the device pipeline alone over the batches uploaded before (ms a
+    batch, median of ``repeats``) and, on CUDA, one profiled stream (wall
+    and device busy ms, idle share; None elsewhere)."""
+    def stream():
+        stream_align(ref, fastq, device, batch)
+
+    chunks = _chunks_on_device(fastq, batch, ref.index.k, device)
+    n = sum(int((lengths > 0).sum()) for _, lengths in chunks)
+    prof = (_profiled(stream, device, None, "route") if device.type == "cuda"
+            else dict.fromkeys(("wall_ms", "device_busy_ms", "idle_share")))
+    device_s = _median_s(lambda: _device_only(ref, chunks, device), repeats, device)
+    return {"reads": n, "stream_reads_per_s": n / _median_s(stream, repeats, device),
+            "device_ms_per_batch": 1e3 * device_s / len(chunks),
+            "wall_ms": prof["wall_ms"], "busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"]}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -241,21 +269,19 @@ def _run(args, device, genomes, work, res: dict, say) -> None:
         _sync(device)
         res["table_s"] = time.perf_counter() - t0
         method = ref.probe_method()
-        # a sort table holds a tuple of key words beside its columns
-        tensors = [x for t in tab for x in (t if isinstance(t, tuple) else (t,))]
         res.update(probe_used=method, distinct_kmers=int(ref.index.num_kmers),
-                   table_bytes=sum(t.numel() * t.element_size() for t in tensors))
+                   table_bytes=table_bytes(tab))
         say(f"db build ({'device' if args.device_build else 'host'}) "
             f"{res['db_build_s']:.3f} s, {method} table on the device "
             f"{res['table_s']:.3f} s: {res['distinct_kmers']} distinct k-mers, "
             f"table {res['table_bytes']} B")
 
-        stats = _stream_align(ref, fastq, device, args.batch).get_summary()["Statistics"]
+        stats = stream_align(ref, fastq, device, args.batch).get_summary()["Statistics"]
         res["statistics"] = stats
         say(f"workload statistics: {stats}")
 
         def stream(batch, mkq=None):
-            return lambda: _stream_align(ref, fastq, device, batch, mkq)
+            return lambda: stream_align(ref, fastq, device, batch, mkq)
 
         runs = {f"B={args.batch}": stream(args.batch),
                 f"B={args.batch} mkq=30": stream(args.batch, 30),

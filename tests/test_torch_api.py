@@ -77,6 +77,52 @@ def test_get_kmer_and_reverse_references():
     assert _both(refs) == ([("g1", {0})], {}, [("g1", {3})])
 
 
+_GA = "ACGTTGCAAGGCTTACCGATAGCTTGACCATGGATCAGT"
+_GB = "TTGACCATGGATCCGGTAACGTGCATGCAATTCGAAGC"
+_SHARED = "GATCGATCGGCTAGCTAGGATCCATGCATGCAACGTCAGTA"
+_GETITEM_FASTA = f">g1\n{_GA}{_SHARED}\n>g2\n{_GB}{_SHARED}{_SHARED[:20]}\n"
+#: case -> (k, query, device-built reference); the mapping, None or the error
+GETITEM_CASES = {
+    "hit k=11": (11, _GA[3:14], False),
+    "hit k=35, two genomes": (35, _SHARED[2:37], False),
+    "miss": (11, "C" * 11, False),
+    "wrong length": (11, _GA[3:15], False),
+    "N": (11, _GA[3:8] + "N" + _GA[9:14], False),
+    "device-built": (11, _GA[3:14], True),
+    "device-built, wrong length": (11, _GA[3:15], True),
+    "device-built, N": (11, _GA[3:8] + "N" + _GA[9:14], True),
+}
+
+
+@pytest.mark.parametrize("case", list(GETITEM_CASES))
+def test_getitem(case):
+    """``ref[kmer]``: the mapping by record identifier and position set, or
+    None, equal to the JAX package's; a device-built reference has no host
+    index for a k-mer it can encode and raises AttributeError in both."""
+    k, query, device_built = GETITEM_CASES[case]
+
+    def lookup(side):
+        _, ref_mod, _, rec = SIDES[side]
+        if device_built:
+            p = rec.FASTAParser()
+            p.parse_records(_GETITEM_FASTA)
+            ref = ref_mod.KmerReference.from_device_build(p.to_genome_arrays(), k)
+        else:
+            ref = _ref(side, _GETITEM_FASTA, k)
+        try:
+            got = ref[query]
+        except AttributeError:
+            return "AttributeError"
+        return None if got is None else {r.identifier: pos for r, pos in got.items()}
+
+    out = _both(lookup)
+    if case.startswith("hit"):
+        assert out and all(out.values())
+        assert len(out) == (2 if "two" in case else 1)
+    else:
+        assert out == ("AttributeError" if case == "device-built" else None)
+
+
 def test_read_method_decomposition():
     def steps(side):
         al = SIDES[side][2]

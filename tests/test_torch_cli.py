@@ -486,6 +486,7 @@ for mod in pkgutil.walk_packages(shotgun_tpu_torch.__path__, "shotgun_tpu_torch.
     __import__(mod.name)
 import shotgun_tpu_torch.parallel.distributed, shotgun_tpu_torch.parallel.mesh
 import shotgun_tpu_torch.parallel.table_sharded, shotgun_tpu_torch.tools.dryrun
+import shotgun_tpu_torch.tools.bulk_proof, shotgun_tpu_torch.tools.devbuild_proof
 # every import chip_smoke.py makes, at its top and inside its functions
 with open("chip_smoke.py") as fh:
     for node in ast.walk(ast.parse(fh.read())):
@@ -514,8 +515,8 @@ assert not loaded, loaded
 
 def test_runs_with_jax_unimportable(capsys):
     """With jax and the JAX package unimportable, every port module (the
-    parallel modules and tools/dryrun named) and every import of
-    chip_smoke.py loads, the native library is the port's own under
+    parallel modules, tools/dryrun and the proof tools named) and every
+    import of chip_smoke.py loads, the native library is the port's own under
     build/host/, and the CLI prints the plain golden, directly, over a
     one-process mesh and through reference -> align -> dumpalign -a, and
     the JAX CLI's stdout at k = 35."""
