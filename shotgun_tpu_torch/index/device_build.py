@@ -96,16 +96,23 @@ def _host_prep(genomes) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     return codes2, runs[: 2 * n_runs].reshape(-1, 2).astype(np.int64)
 
 
-def _valid_windows(genomes, k: int, codes2: np.ndarray, runs: np.ndarray,
-                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _upload(genomes, codes2: np.ndarray, runs: np.ndarray, device: torch.device
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The host prep's arrays and the record starts after the first, on
+    ``device``: (packed codes uint8, N runs int64 [n, 2], starts int64)."""
+    starts = genomes.offsets[1: genomes.num_records]
+    return (torch.from_numpy(codes2).to(device), torch.from_numpy(runs).to(device),
+            torch.from_numpy(starts[starts < genomes.codes.size]).to(device))
+
+
+def _valid_windows(g: int, k: int, packed: torch.Tensor, runs_d: torch.Tensor,
+                   rec_starts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(keys int64, records int32) of the windows that hold no N and
     cross no record start, in genome order."""
-    g = int(genomes.codes.size)
+    device = packed.device
     w = g - k + 1
-    packed = torch.from_numpy(codes2).to(device)
     keys = encode_window(packed[None], k)[0][0, :w]
 
-    runs_d = torch.from_numpy(runs).to(device)
     one = torch.ones(runs_d.shape[0], dtype=torch.int32, device=device)
     delta = torch.zeros(g + 1, dtype=torch.int32, device=device)
     delta.index_add_(0, runs_d[:, 0], one).index_add_(0, runs_d[:, 1], -one)
@@ -115,37 +122,22 @@ def _valid_windows(genomes, k: int, codes2: np.ndarray, runs: np.ndarray,
 
     # record of each position: +1 at every record start after the first
     # (empty records add at the same position, so they are skipped)
-    starts = torch.from_numpy(genomes.offsets[1: genomes.num_records]).to(device)
-    starts = starts[starts < g]
     rec = torch.zeros(g, dtype=torch.int32, device=device)
-    rec.index_add_(0, starts, torch.ones_like(starts, dtype=torch.int32))
+    rec.index_add_(0, rec_starts, torch.ones_like(rec_starts, dtype=torch.int32))
     rec = torch.cumsum(rec, 0, dtype=torch.int32)
     ok &= rec[:w] == rec[k - 1:]
     return keys[ok], rec[:w][ok]
 
 
-def device_build_tables(genomes, k: int, device: torch.device) -> Optional[dict]:
-    """Build the sorted table and the set masks of ``genomes``
-    (``io.packing.GenomeArrays``) on ``device``.
-
-    Returns a dict with tensors on ``device`` ``keys`` (int64 [U],
-    ascending, distinct), ``sid`` and ``gc`` (int32 [U]); host
-    ``set_masks`` (uint8 [num_sets, ceil(R/8)]: rows [0, R) the singleton
-    sets {r}, rows [R, num_sets) the multi sets); ints ``num_kmers``,
-    ``num_sets``, ``num_records``, ``num_windows`` (g - k + 1); and
-    ``prep_s``, the host packing time.
-    None when the build does not take the input (see the module doc)."""
-    r = genomes.num_records
-    g = int(genomes.codes.size)
-    if k > 31 or r > R_CAP or g < k:
-        return None
-    t0 = time.perf_counter()
-    prep = _host_prep(genomes)
-    if prep is None:
-        return None
-    prep_s = time.perf_counter() - t0
-
-    keys_v, rec_v = _valid_windows(genomes, k, *prep, device)
+def _compute(g: int, r: int, k: int, packed: torch.Tensor, runs_d: torch.Tensor,
+             rec_starts: torch.Tensor) -> Optional[dict]:
+    """Steps 2-5 of the module doc on the device: the table (``keys``,
+    ``sid``, ``gc``), the multi sets' packed (set, record) pairs ``pk``
+    (set * R_CAP + record) and their count ``n_multi``; None past SMAX,
+    PMAX or on a hash collision.  The counts the checks need are read on
+    the way (each waits for the device)."""
+    keys_v, rec_v = _valid_windows(g, k, packed, runs_d, rec_starts)
+    device = packed.device
     sk, order = torch.sort(keys_v, stable=True)
     rec = rec_v[order].to(_I64)
     n = sk.numel()
@@ -166,7 +158,7 @@ def device_build_tables(genomes, k: int, device: torch.device) -> Optional[dict]
     gc = group_sum(new_pair.to(_I64))
     sid = rec[starts].clone()
     multi = gc > 1
-    pairs = np.zeros(0, dtype=np.int64)
+    pk = torch.zeros(0, dtype=_I64, device=device)
     n_multi = 0
     if bool(multi.any()):
         group = torch.cumsum(first.to(_I64), 0) - 1
@@ -195,9 +187,17 @@ def device_build_tables(genomes, k: int, device: torch.device) -> Optional[dict]
         if not bool((size[midx] == gc[mg]).all()):
             return None
         sid[mg] = r + midx
-        pairs = pk.cpu().numpy()
+    return dict(keys=sk[starts], sid=sid.to(torch.int32), gc=gc.to(torch.int32),
+                pk=pk, n_multi=n_multi)
 
-    num_sets = r + n_multi
+
+def _fetch(computed: dict, r: int) -> dict:
+    """The multi sets' pairs to the host, and the set masks made there:
+    ``computed`` without ``pk``, with ``num_kmers``, ``num_sets`` and
+    ``set_masks`` (module doc of ``device_build_tables``)."""
+    out = {name: v for name, v in computed.items() if name not in ("pk", "n_multi")}
+    pairs = computed["pk"].cpu().numpy()
+    num_sets = r + computed["n_multi"]
     set_masks = np.zeros((num_sets, max((r + 7) // 8, 1)), dtype=np.uint8)
     rr = np.arange(r)
     set_masks[rr, rr >> 3] = np.uint8(1) << (rr & 7).astype(np.uint8)
@@ -205,9 +205,36 @@ def device_build_tables(genomes, k: int, device: torch.device) -> Optional[dict]
         sidx, recx = pairs // R_CAP, pairs % R_CAP
         np.bitwise_or.at(set_masks, (r + sidx, recx >> 3),
                          np.uint8(1) << (recx & 7).astype(np.uint8))
-    return dict(keys=sk[starts], sid=sid.to(torch.int32), gc=gc.to(torch.int32),
-                num_kmers=u, num_sets=num_sets, set_masks=set_masks,
-                num_records=r, num_windows=g - k + 1, prep_s=prep_s)
+    return dict(out, num_kmers=out["keys"].numel(), num_sets=num_sets,
+                set_masks=set_masks)
+
+
+def device_build_tables(genomes, k: int, device: torch.device) -> Optional[dict]:
+    """Build the sorted table and the set masks of ``genomes``
+    (``io.packing.GenomeArrays``) on ``device``, in four steps:
+    ``_host_prep``, ``_upload``, ``_compute`` and ``_fetch``.
+
+    Returns a dict with tensors on ``device`` ``keys`` (int64 [U],
+    ascending, distinct), ``sid`` and ``gc`` (int32 [U]); host
+    ``set_masks`` (uint8 [num_sets, ceil(R/8)]: rows [0, R) the singleton
+    sets {r}, rows [R, num_sets) the multi sets); ints ``num_kmers``,
+    ``num_sets``, ``num_records``, ``num_windows`` (g - k + 1); and
+    ``prep_s``, the host packing time.
+    None when the build does not take the input (see the module doc)."""
+    r = genomes.num_records
+    g = int(genomes.codes.size)
+    if k > 31 or r > R_CAP or g < k:
+        return None
+    t0 = time.perf_counter()
+    prep = _host_prep(genomes)
+    if prep is None:
+        return None
+    prep_s = time.perf_counter() - t0
+    computed = _compute(g, r, k, *_upload(genomes, *prep, device))
+    if computed is None:
+        return None
+    return dict(_fetch(computed, r), num_records=r, num_windows=g - k + 1,
+                prep_s=prep_s)
 
 
 def _i32_bits(x: torch.Tensor) -> torch.Tensor:

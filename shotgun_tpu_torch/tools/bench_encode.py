@@ -92,6 +92,18 @@ def rotation(out_bytes: int) -> int:
     return max(2, -(-ROTATE_BYTES // max(out_bytes, 1)))
 
 
+def kept_ms(fn: Callable[[], object], out_bytes: int, iters: int) -> float:
+    """``device_ms`` of ``fn()``, which makes ``out_bytes`` of output a
+    call: the outputs are kept alive over a ``rotation``, so every call
+    writes to memory that the L2 does not hold."""
+    ring = [None] * rotation(out_bytes)
+
+    def call(i: int) -> None:
+        ring[i % len(ring)] = fn()
+
+    return device_ms(call, iters)
+
+
 class H1Library:
     """One build of kernel H1, called through its C entry point."""
 

@@ -15,9 +15,10 @@ after one warm-up call:
   count of table rows finds each position's last table row);
 - ``join_cummax``: the same join with that row found by ``torch.cummax``,
   the first design; its outputs must equal ``join``'s;
-- the join's steps: the stable and the unstable sort of the tagged keys,
-  ``torch.cummax`` and ``torch.cumsum`` over them, and the scatter back by
-  the sort's permutation;
+- the join's own steps (``join_steps``): the stable sort of the tagged
+  keys, the prefix count (``torch.cumsum``), the scatter back by the
+  sort's permutation and the gathers of the table rows; beside them the
+  unstable sort and ``torch.cummax`` over the same rows;
 - ``hash16``: the 16-slot table of the same rows (``device_hash_table``),
   kernel H2 and the hash path's first-occurrence dedupe; its hits, set
   ids, genome counts and first occurrences must equal the join's.
@@ -42,7 +43,7 @@ import argparse
 import json
 import sys
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -142,6 +143,29 @@ def make_case(rng: np.random.Generator, u: int, b: int, device: torch.device):
     return SortedTableDev((tkeys,), sid, gc), keys, query_ok
 
 
+def join_steps(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor
+               ) -> Dict[str, Callable[[], object]]:
+    """The sort join's own steps on one-word keys, each a call on inputs
+    made here once: the stable sort of the tagged keys, the prefix count
+    of table rows, the scatter back by the sort's permutation, and the
+    gathers of the key, set id and genome count of each window's row."""
+    (tkeys,) = tab.words
+    u = tkeys.numel()
+    tagged = torch.cat([tkeys << 1, torch.where(
+        query_ok.reshape(-1), (keys.reshape(-1) << 1) | 1, -1)])
+    sk, order = torch.sort(tagged, stable=True)
+    is_table = order < u
+    row = torch.empty_like(order)
+    row[order] = torch.cumsum(is_table, 0) - 1
+    rowc = row[u:].clamp(min=0)
+    return {
+        "sort_stable": lambda: torch.sort(tagged, stable=True),
+        "cumsum": lambda: torch.cumsum(is_table, 0),
+        "scatter_restore": lambda: torch.empty_like(sk).index_put_((order,), sk),
+        "gather": lambda: (tkeys[rowc], tab.sid[rowc], tab.gc[rowc]),
+    }
+
+
 def bench(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor,
           iters: int, device: torch.device) -> dict:
     """Times and equality checks of one table size (see the module doc)."""
@@ -161,20 +185,17 @@ def bench(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor,
 
     tagged = torch.cat([tkeys << 1, torch.where(
         query_ok.reshape(-1), (keys.reshape(-1) << 1) | 1, -1)])
-    sk, order = torch.sort(tagged, stable=True)
-    is_table = order < u
-    last = torch.where(is_table, order, -1)
+    order = torch.sort(tagged, stable=True)[1]
+    last = torch.where(order < u, order, -1)
     steps = {
         "join": lambda: probe_dedupe_sorted(tab, keys, query_ok),
         "join_cummax": lambda: join_cummax(tab, keys, query_ok),
-        "sort_stable": lambda: torch.sort(tagged, stable=True),
+        **join_steps(tab, keys, query_ok),
         "sort_unstable": lambda: torch.sort(tagged),
         "cummax": lambda: torch.cummax(last, 0),
-        "cumsum": lambda: torch.cumsum(is_table, 0),
-        "scatter_restore": lambda: torch.empty_like(sk).index_put_((order,), sk),
         "hash16": lambda: hash16_join(*ht, keys, query_ok),
     }
-    res["sorted_rows"] = int(sk.numel())
+    res["sorted_rows"] = int(tagged.numel())
     res["ms"] = {name: time_ms(fn, iters, device) for name, fn in steps.items()}
     return res
 

@@ -90,6 +90,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def timed_s(fn: Callable[[], object], device: torch.device) -> tuple:
+    """(``fn()``, its seconds by the host clock from a device
+    synchronisation to the next)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
 def table_bytes(tab) -> int:
     """Bytes of a probe table's tensors (a sort table's key words too)."""
     tensors = [x for t in tab for x in (t if isinstance(t, tuple) else (t,))]
@@ -147,8 +157,8 @@ def _device_only(ref, chunks, device) -> None:
     _sync(device)
 
 
-def _profiled(fn: Callable[[], None], device: torch.device, out: Optional[str],
-              tag: str) -> dict:
+def profiled(fn: Callable[[], None], device: torch.device, out: Optional[str],
+             tag: str) -> dict:
     """One profiled call of ``fn``: wall, device busy and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -185,7 +195,7 @@ def profile_route(ref, fastq: str, device: torch.device, batch: int,
 
     chunks = _chunks_on_device(fastq, batch, ref.index.k, device)
     n = sum(int((lengths > 0).sum()) for _, lengths in chunks)
-    prof = (_profiled(stream, device, None, "route") if device.type == "cuda"
+    prof = (profiled(stream, device, None, "route") if device.type == "cuda"
             else dict.fromkeys(("wall_ms", "device_busy_ms", "idle_share")))
     device_s = _median_s(lambda: _device_only(ref, chunks, device), repeats, device)
     return {"reads": n, "stream_reads_per_s": n / _median_s(stream, repeats, device),
@@ -323,7 +333,7 @@ def _run(args, device, genomes, work, res: dict, say) -> None:
         if device.type == "cuda":
             for tag, fn in (("device_only", lambda: _device_only(ref, chunks, device)),
                             ("stream", stream(args.batch))):
-                p = _profiled(fn, device, args.out, tag)
+                p = profiled(fn, device, args.out, tag)
                 res[f"profiled_{tag}"] = p
                 say(f"profiled {tag}: wall {p['wall_ms']:.3f} ms, device busy "
                     f"{p['device_busy_ms']:.3f} ms, idle share {p['idle_share']:.4f}")

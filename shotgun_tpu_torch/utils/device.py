@@ -3,12 +3,14 @@
 The CLI reads ``SHOTGUN_TPU_TORCH_DEVICE`` (default ``cuda``).  Asking for
 CUDA on a machine without it raises: the port never carries on silently
 on the CPU.  Library callers and tests pass their device explicitly.
-``upload`` moves a host array to a device.
+``upload`` moves a host array to a device; ``tool_device`` is the
+measuring tools' ``resolve_device``, which exits 1 where it would raise.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 from typing import Optional, Union
 
 import numpy as np
@@ -31,6 +33,17 @@ def resolve_device(name: Optional[Union[str, torch.device]] = None) -> torch.dev
     if device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device '{name}' (cuda or cpu)")
     return device
+
+
+def tool_device(name: Optional[str], tool: str) -> torch.device:
+    """``resolve_device(name)`` for a measuring tool: where that raises (no
+    CUDA and no CPU asked for), the reason goes to stderr and the tool
+    exits 1; it never measures on another device than the one asked for."""
+    try:
+        return resolve_device(name)
+    except RuntimeError as exc:
+        print(f"{tool}: {exc}", file=sys.stderr)
+        raise SystemExit(1) from None
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:

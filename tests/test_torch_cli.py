@@ -487,6 +487,8 @@ for mod in pkgutil.walk_packages(shotgun_tpu_torch.__path__, "shotgun_tpu_torch.
 import shotgun_tpu_torch.parallel.distributed, shotgun_tpu_torch.parallel.mesh
 import shotgun_tpu_torch.parallel.table_sharded, shotgun_tpu_torch.tools.dryrun
 import shotgun_tpu_torch.tools.bulk_proof, shotgun_tpu_torch.tools.devbuild_proof
+import shotgun_tpu_torch.tools.bench, shotgun_tpu_torch.tools.profile_stages
+import shotgun_tpu_torch.tools.profile_devbuild
 # every import chip_smoke.py makes, at its top and inside its functions
 with open("chip_smoke.py") as fh:
     for node in ast.walk(ast.parse(fh.read())):
@@ -515,7 +517,8 @@ assert not loaded, loaded
 
 def test_runs_with_jax_unimportable(capsys):
     """With jax and the JAX package unimportable, every port module (the
-    parallel modules, tools/dryrun and the proof tools named) and every
+    parallel modules, tools/dryrun, the proof tools and the benchmark and
+    stage profilers named) and every
     import of chip_smoke.py loads, the native library is the port's own under
     build/host/, and the CLI prints the plain golden, directly, over a
     one-process mesh and through reference -> align -> dumpalign -a, and

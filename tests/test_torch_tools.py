@@ -190,7 +190,7 @@ def test_bench_sortjoin_runs_on_cpu_and_reports_no_device_metric(capsys):
         assert run["sorted_rows"] == run["keys"] + 48 * bench_sortjoin.WINDOWS
         assert set(run["ms"]) == {"join", "join_cummax", "sort_stable",
                                   "sort_unstable", "cummax", "cumsum",
-                                  "scatter_restore", "hash16"}
+                                  "scatter_restore", "gather", "hash16"}
 
 
 def test_bench_sortjoin_words_exits_1_without_cuda(monkeypatch, capsys):
