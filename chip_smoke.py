@@ -99,14 +99,27 @@ Phases, one line each:
      b. the same on the strain panel over 8 shards (the sort join), equal to
         phase 6's stdout;
      c. DP x TP: a 2 x 2 mesh with the sort table split in 2 key ranges, on
-        the strain panel and on the 32 Mbp genomes (SHOTGUN_TPU_PROBE=sort,
-        31,999,040 rows), each equal to its single-device run; one batch's
-        ms (CUDA events around back-to-back batches) beside the
-        single-device sort join's;
+        the strain panel and on the 32 Mbp device build (31,999,040 rows) on
+        the default route, where one device takes the 16-slot table and the
+        2-D mesh the split sort table: each summary equal to phase 6's or
+        phase 5's stdout, H2 not launched; one batch's ms (CUDA events
+        around back-to-back batches) beside the single-device sort join's;
      d. two CLI processes (SHOTGUN_TPU_NPROCS=2) of `-t dumpalign -g -k 31`
         on the strain panel, both on cuda:0 over gloo: process 0's stdout
         ends in phase 6's, process 1 prints no summary;
-     e. ``tools/dryrun.py dryrun_multichip(4)``.
+     e. ``tools/dryrun.py dryrun_multichip(4)`` (its two table-axis
+        processes over gloo too);
+     f. after 12a, whose summary it is held to: the table axis across two
+        processes, both on cuda:0 over gloo (NCCL refuses two ranks on one
+        card), joined in the 1 x 2 ``global_mesh_2d(2)``; each builds 12a's
+        100 Mbp genomes (its seed) on the host, holds one key range of the
+        1.6 GB sort table and aligns 12a's 262,144 reads at B = P12_BATCH
+        through ``align_packed_reads(mesh=...)``: both summaries equal
+        12a's, each range at most 0.55 of the table and the two summing to
+        it; each process's peak device memory beside 12a's, its peak RSS,
+        wall, reads/s, H1 launches, and the bytes and seconds of the row
+        merge (one packed ``all_reduce(MAX)`` a batch, staged through the
+        host by gloo).
      Each path's wall, reads/s, peak device memory and kernel launches;
  12. 100 Mbp, the JAX repo's proven scale (``tools/devbuild_proof.py`` and
      ``tools/bulk_proof.py`` at their defaults):
@@ -1296,12 +1309,12 @@ def tp_batch_ms(ref, batch, device) -> tuple:
     arrays = (pack_codes_2bit(codes), None, batch.lengths[:BATCH].astype(np.int32),
               np.ones(BATCH, dtype=bool))
     flags = dict(k=K, has_mrq=False, has_mkq=False, has_mg=False)
-    tab, member = ref.device_probe_tables(device), ref.set_member_device(device)
+    tab, member = ref.device_probe_tables(device, "sort"), ref.set_member_device(device)
     one_args = [None if a is None else torch.from_numpy(a).to(device) for a in arrays]
     one = batch_ms(lambda: aggregate_batch(align_batch(
         tab, member, *one_args[:3], 1, 1, 0, 0, 0, **flags), one_args[3]))
     mesh = make_mesh_2d([device] * 4, data=2, table=2)
-    parts = device_put_sharded_table(mesh, shard_sorted_table(tab, 2))
+    parts = device_put_sharded_table(mesh, shard_sorted_table(ref.sort_columns(), 2))
     (members,) = replicate(mesh, member)
     shards = shard_read_arrays(mesh, *arrays)
     tp = batch_ms(lambda: align_aggregate_table_sharded(
@@ -1312,10 +1325,10 @@ def tp_batch_ms(ref, batch, device) -> tuple:
 def two_process_cli(argv, strain_out: str) -> tuple:
     """Phase 11d: two CLI processes on cuda:0 (``SHOTGUN_TPU_NPROCS=2``);
     (wall s, backend, process 0's stages, each process's launches)."""
-    from shotgun_tpu_torch.tools.dryrun import run_two_processes
+    from shotgun_tpu_torch.tools.dryrun import run_processes
 
     t0 = time.perf_counter()
-    outs = run_two_processes(["-c", CLI_CHILD, *argv, "--profile"],
+    outs = run_processes(["-c", CLI_CHILD, *argv, "--profile"],
                              dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cuda"), timeout=400)
     wall = time.perf_counter() - t0
     if not outs[0][0].endswith(strain_out):
@@ -1351,7 +1364,7 @@ def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: i
     from shotgun_tpu_torch.io.data_file import FASTAFile, FASTAQFile
     from shotgun_tpu_torch.parallel.mesh import make_mesh
     from shotgun_tpu_torch.parallel.table_sharded import make_mesh_2d
-    from shotgun_tpu_torch.reference import PROBE_ENV, KmerReference
+    from shotgun_tpu_torch.reference import KmerReference
     from shotgun_tpu_torch.tools.dryrun import dryrun_multichip
 
     t_phase = time.perf_counter()
@@ -1406,26 +1419,21 @@ def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: i
                      strain_ref.index.num_kmers, wall, N_READS / wall, launches, BATCH,
                      tp_ms, one_ms))
     del strain_ref
-    os.environ[PROBE_ENV] = "sort"
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        one_out, one_launches, one_wall = mesh_run(main_ref, batch, None, device, MKQ)
-        check("c: one device, 32 Mbp sort", one_out, main_out, one_launches, False)
-        one_peak = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out, launches, wall = mesh_run(main_ref, batch, mesh2, device, MKQ)
-        check("c: DP x TP 2x2, 32 Mbp sort", out, one_out, launches, False)
-        tp_peak = torch.cuda.max_memory_allocated()
-        rows = main_ref.device_probe_tables(device).sid.numel()
-        one_ms, tp_ms = tp_batch_ms(main_ref, batch, device)
-    finally:
-        os.environ.pop(PROBE_ENV)
-    parts.append("c. DP x TP 2 x 2, 32 Mbp sort table (%d rows in 2 key ranges): %.3f s = "
-                 "%.0f reads/s, launches %s, peak %d B; one device, sort join: %.3f s = "
-                 "%.0f reads/s, peak %d B; a batch of %d reads %.3f ms against %.3f ms on "
-                 "one device; both summaries == phase 5's" % (
-                     rows, wall, n / wall, launches, tp_peak, one_wall, n / one_wall,
-                     one_peak, BATCH, tp_ms, one_ms))
+    # the 32 Mbp device build on the default route: auto picks the 16-slot
+    # table for one device (11a), and the 2-D mesh the split sort table
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, wall = mesh_run(main_ref, batch, mesh2, device, MKQ)
+    check("c: DP x TP 2x2, 32 Mbp, default route", out, main_out, launches, False)
+    tp_peak = torch.cuda.max_memory_allocated()
+    rows = main_ref.index.num_kmers
+    one_ms, tp_ms = tp_batch_ms(main_ref, batch, device)
+    parts.append("c. DP x TP 2 x 2, 32 Mbp on the default route (auto: %s for one device, "
+                 "the sort table of %d distinct 31-mers in 2 key ranges on the mesh): %.3f s = %.0f "
+                 "reads/s, launches %s, peak %d B (the 16-slot table of 11a still held); a "
+                 "batch of %d reads %.3f ms against %.3f ms on one device (sort join); "
+                 "summary == phase 5's" % (
+                     main_ref.probe_method(), rows, wall, n / wall, launches, tp_peak, BATCH,
+                     tp_ms, one_ms))
     del main_ref, batch, strain_batch
     torch.cuda.empty_cache()
 
@@ -1510,7 +1518,8 @@ def phase_100mbp_devbuild(tmp: str, device) -> tuple:
     the default budget), the same genomes built again with the budget at
     P12_BUDGET (the 2^25-bucket 16-slot table, H2), equal summaries; each
     route's profile; H1 on the genome row and H2 on that table against
-    their plain versions.  Returns ({path: launches}, H1 mode, H2 mode)."""
+    their plain versions.  Returns ({path: launches}, H1 mode, H2 mode,
+    the sort route's summary, table bytes and peak device memory)."""
     import torch
 
     from shotgun_tpu_torch.index.device_build import HBM_BUDGET_ENV, _host_prep
@@ -1626,7 +1635,133 @@ def phase_100mbp_devbuild(tmp: str, device) -> tuple:
                   h2_nbytes, buckets, h2_mode["bound_ms"], 100 * h2_mode["bound_share"])]
     say("phase 12a 100 Mbp device build (%.3f s): %s; host peak RSS %d B" % (
         time.perf_counter() - t_phase, "; ".join(parts), peak_rss()))
-    return by_path, h1_mode, h2_mode
+    p12a = {"summary": res["align"]["summary"], "table_bytes": res["table"]["bytes"],
+            "sort_peak": sort_peak}
+    return by_path, h1_mode, h2_mode, p12a
+
+
+#: the child of phase 11f: one process of a 1 x 2 mesh whose table axis
+#: spans the two processes (gloo); prints one JSON line of its figures
+TABLE_AXIS_CHILD = r"""
+import json, os, sys, threading, time
+import torch
+from shotgun_tpu_torch.aligner import PseudoAlignment
+from shotgun_tpu_torch.ops.encode import encode_window
+from shotgun_tpu_torch.ops.probe import hash_probe
+from shotgun_tpu_torch.parallel import distributed, table_sharded
+from shotgun_tpu_torch.reference import KmerReference
+from shotgun_tpu_torch.tools import devbuild_proof
+from shotgun_tpu_torch.tools.profile_align import table_bytes
+rank, batch = int(os.environ["SHOTGUN_TPU_PROC_ID"]), int(sys.argv[1])
+peak_rss = [0]
+def sample_rss():
+    # resident bytes from /proc/self/statm every 0.1 s (a host's
+    # /proc may lack VmHWM, and ru_maxrss starts from the parent's)
+    try:
+        while True:
+            with open("/proc/self/statm") as fh:
+                rss = int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+            peak_rss[0] = max(peak_rss[0], rss)
+            time.sleep(0.1)
+    except (OSError, IndexError, ValueError):
+        return
+threading.Thread(target=sample_rss, daemon=True).start()
+distributed.initialize(os.environ["SHOTGUN_TPU_COORDINATOR"], 2, rank)
+try:
+    dev = distributed.rank_device(rank)
+    t0 = time.perf_counter()
+    genomes, reads = devbuild_proof.make_data(100, 262_144)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = KmerReference(31, genomes, device=dev)
+    build_s = time.perf_counter() - t0
+    mesh = distributed.global_mesh_2d(2)
+    merges = []
+    merge = table_sharded._all_reduce
+    def counted(t, op, group):
+        t0 = time.perf_counter()
+        out = merge(t, op, group)
+        merges.append((t.numel() * t.element_size(), time.perf_counter() - t0))
+        return out
+    table_sharded._all_reduce = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    encode_window.launches = hash_probe.launches = 0
+    aln = PseudoAlignment(ref, dev)
+    t0 = time.perf_counter()
+    step, tabs = aln.mesh_probe_tables(mesh)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aln.align_packed_reads(reads, 1, 1, batch_size=batch, mesh=mesh, store_reads=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(json.dumps({
+        "rank": rank, "backend": torch.distributed.get_backend(), "mesh": mesh.shape,
+        "step": step.__name__, "num_kmers": int(ref.index.num_kmers),
+        "part_bytes": table_bytes(tabs[0]), "part_rows": int(tabs[0].sid.numel()),
+        "data_s": data_s, "host_build_s": build_s, "place_s": place_s, "align_s": wall,
+        "reads": reads.num_reads, "peak_device": torch.cuda.max_memory_allocated(),
+        "peak_rss": peak_rss[0] or None,
+        "launches": {"encode_window": encode_window.launches,
+                     "hash_probe": hash_probe.launches},
+        "merges": len(merges), "merge_bytes": sorted({b for b, _ in merges}),
+        "merge_s": sum(t for _, t in merges), "summary": aln.get_summary()}))
+finally:
+    distributed.shutdown()
+"""
+
+
+def phase_table_axis(p12a: dict) -> dict:
+    """Phase 11f, after 12a: 12a's genomes and reads (its seed) in two
+    processes on cuda:0 over gloo, each building the 100 Mbp reference on
+    the host and holding one key range of its sort table, joined in the
+    1 x 2 ``global_mesh_2d(2)``; both summaries must equal 12a's, each
+    part be at most 0.55 of the table and the two sum to it.  Returns
+    {path: launches}."""
+    from shotgun_tpu_torch.tools.dryrun import run_processes
+
+    t0 = time.perf_counter()
+    outs = run_processes(["-c", TABLE_AXIS_CHILD, str(P12_BATCH)],
+                         dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cuda"), timeout=400)
+    wall = time.perf_counter() - t0
+    res = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    want = json.loads(json.dumps(p12a["summary"]))
+    whole = p12a["table_bytes"]
+    n_batches = -(-res[0]["reads"] // P12_BATCH)
+    by_path, parts = {}, []
+    for r in res:
+        name = f"11f process {r['rank']}"
+        if r["summary"] != want:
+            raise AssertionError(f"{name}: the summary differs from 12a's")
+        if r["backend"] != "gloo" or r["mesh"] != {"data": 1, "table": 2}:
+            raise AssertionError(f"{name}: backend {r['backend']}, mesh {r['mesh']}")
+        if r["step"] != "align_aggregate_table_sharded":
+            raise AssertionError(f"{name}: step {r['step']}")
+        if r["part_bytes"] > 0.55 * whole:
+            raise AssertionError(f"{name}: its part is {r['part_bytes']} B of {whole} B")
+        if r["launches"]["encode_window"] <= 0 or r["launches"]["hash_probe"] != 0:
+            raise AssertionError(f"{name}: launches {r['launches']}")
+        if r["merges"] != n_batches:
+            raise AssertionError(f"{name}: {r['merges']} row merges for {n_batches} batches")
+        by_path[name] = r["launches"]
+        parts.append(
+            "process %d: %d distinct 31-mers built on the host in %.3f s (data %.3f s), its "
+            "key range %d rows = %d B (%.4f of the table) cut and placed in %.3f s, "
+            "align_packed_reads %.3f s = %.0f reads/s, peak device memory %d B, peak RSS "
+            "%s B, launches %s, %d row merges of %s B a batch, %.3f s in them" % (
+                r["rank"], r["num_kmers"], r["host_build_s"], r["data_s"], r["part_rows"],
+                r["part_bytes"], r["part_bytes"] / whole, r["place_s"], r["align_s"],
+                r["reads"] / r["align_s"], r["peak_device"], r["peak_rss"], r["launches"],
+                r["merges"], r["merge_bytes"], r["merge_s"]))
+    if sum(r["part_bytes"] for r in res) != whole:
+        raise AssertionError(f"11f: the parts sum to {sum(r['part_bytes'] for r in res)} B, "
+                             f"not 12a's table's {whole} B")
+    say("phase 11f table axis across 2 processes on cuda:0 (backend gloo, 1 x 2 mesh, "
+        "%d reads at B = %d, wall %.3f s with both children's start-up): %s; both summaries "
+        "== 12a's; 12a's sort table %d B on one device, its peak device memory %d B" % (
+            res[0]["reads"], P12_BATCH, wall, "; ".join(parts), whole, p12a["sort_peak"]))
+    return by_path
 
 
 def phase_100mbp_bulk(tmp: str, device) -> dict:
@@ -1947,9 +2082,11 @@ def main() -> int:
 
         # 12. the JAX repo's proven scale: 100 Mbp, about 100M 31-mers
         t12 = time.perf_counter()
-        paths12, h1_100mbp, h2_100mbp = phase_100mbp_devbuild(tmp, device)
+        paths12, h1_100mbp, h2_100mbp, p12a = phase_100mbp_devbuild(tmp, device)
         by_path.update(paths12)
         torch.cuda.empty_cache()
+        # 11f. the table axis across two processes, held to 12a
+        by_path.update(phase_table_axis(p12a))
         by_path.update(phase_100mbp_bulk(tmp, device))
         torch.cuda.empty_cache()
         by_path.update(phase_100mbp_words(device))

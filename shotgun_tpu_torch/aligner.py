@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import queue
 import threading
 from collections import namedtuple
@@ -63,7 +64,7 @@ from shotgun_tpu_torch.parallel.table_sharded import (
     device_put_sharded_table,
     shard_sorted_table,
 )
-from shotgun_tpu_torch.reference import KDBFormatError, KmerReference
+from shotgun_tpu_torch.reference import PROBE_ENV, KDBFormatError, KmerReference
 from shotgun_tpu_torch.utils.device import resolve_device, upload
 from shotgun_tpu_torch.utils.profiling import phase
 
@@ -391,6 +392,8 @@ class PseudoAlignment:
         self._first_batch = np.full(r, _INF, dtype=np.int64)
         self._first_key = np.full(r, _INF, dtype=np.int64)
         self._batch_no = 0
+        # each mesh's probe tables, placed once: {key: per-device tables}
+        self._mesh_tables: Dict[tuple, tuple] = {}
 
         self.filter_read_quality_flag = False
         self.filter_kmer_quality_flag = False
@@ -628,9 +631,10 @@ class PseudoAlignment:
 
         ``mesh`` (``parallel``; needs ``store_reads=False``): each batch,
         rounded up to a multiple of the data axis, is sharded over it, the
-        probe table replicated or, on a ``("data", "table")`` mesh,
-        range-partitioned over the table axis (the sort join only); the
-        summary equals the single-device run's."""
+        probe table replicated or, on a ``("data", "table")`` mesh at
+        ``auto`` or ``sort``, the sort table range-partitioned over the
+        table axis (``mesh_probe_tables``); the summary equals the
+        single-device run's."""
         if mesh is not None and store_reads:
             raise ValueError("mesh-sharded alignment requires store_reads=False")
         self._check_args(m, p, min_read_quality, min_kmer_quality, max_genomes)
@@ -663,23 +667,44 @@ class PseudoAlignment:
             lists = []
         self._finish_run(carry, n_batches, lists, batch.ids)
 
+    def mesh_probe_tables(self, mesh: Mesh) -> Tuple[Any, tuple]:
+        """(the mesh's align step, its probe table on each device), placed
+        once a mesh.  A ``("data", "table")`` mesh takes the sort table at
+        ``auto`` and ``sort`` ($SHOTGUN_TPU_PROBE), whatever ``auto`` picks
+        for one device: only the sort join range-partitions, so the table is
+        cut where it lives (``KmerReference.sort_columns``) and each device
+        receives its own key range.  On an
+        explicit hash table, and on a data mesh, the reference's table is
+        replicated and the mesh runs data parallel, as the JAX package runs
+        every mesh."""
+        ref = self.kmer_reference
+        requested = os.environ.get(PROBE_ENV, "auto")
+        split = "table" in mesh.shape and (
+            requested == "auto" or ref.probe_method(requested) == "sort")
+        key = (mesh.devices, tuple(mesh.shape.items()), split, requested)
+        if key not in self._mesh_tables:
+            if split:
+                tabs = device_put_sharded_table(
+                    mesh, shard_sorted_table(ref.sort_columns(), mesh.table))
+            else:
+                (tabs,) = replicate(mesh, ref.device_probe_tables(mesh.devices[0]))
+            self._mesh_tables[key] = tabs
+        step = align_aggregate_table_sharded if split else align_aggregate_sharded
+        return step, self._mesh_tables[key]
+
     def _fold_mesh(self, chunks: Iterable[Chunk], mesh: Mesh, m, p, min_read_quality,
                    min_kmer_quality, max_genomes) -> Tuple[FoldCarry, int]:
         """Align every chunk over ``mesh`` and fold the merged results into
-        a carry on its first device; the table and the set membership are
-        placed once a run."""
+        a carry on its first device; the set membership is placed once a
+        run, the tables once a mesh."""
         ref = self.kmer_reference
         k = ref.index.k
         dev = mesh.devices[0]
         use_qual = min_read_quality is not None or min_kmer_quality is not None
         (member,) = replicate(mesh, ref.set_member_device(dev))
         step, tabs = align_aggregate_sharded, None
-        if k >= 1 and "table" in mesh.shape:
-            step = align_aggregate_table_sharded
-            tabs = device_put_sharded_table(mesh, shard_sorted_table(
-                ref.device_probe_tables(dev), mesh.table))
-        elif k >= 1:
-            (tabs,) = replicate(mesh, ref.device_probe_tables(dev))
+        if k >= 1:
+            step, tabs = self.mesh_probe_tables(mesh)
         carry = init_fold_carry(member[0].shape[1], dev, start_batch=self._batch_no)
         n_batches = 0
         for codes_p, qual, lengths, rows in chunks:

@@ -390,8 +390,6 @@ def main(argv: Optional[List[str]] = None) -> None:
             NotValidatingUniqueMapping, AddingExistingRead,
             UserInputError) as err:
         sys.exit(err)
-    except NotImplementedError as err:
-        sys.exit(f"Error: {err}")
     finally:
         PROFILER.report()
         distributed.shutdown()

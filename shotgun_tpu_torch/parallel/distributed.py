@@ -3,11 +3,12 @@
 
 One process a device (or a group of devices): ``initialize`` joins the
 process group, ``global_data_mesh`` gives the data mesh over every
-process, and ``parallel.mesh`` merges the per-genome counters and order
-keys with exact integer ``all_reduce`` (SUM, MIN), so dumpalign's output
-does not depend on the process count.  Every process holds the whole read
-batch in global order and aligns its own shard of each batch; process 0
-prints the summary.
+process and ``global_mesh_2d`` the ``("data", "table")`` mesh, whose
+table axis may span processes, and ``parallel.mesh`` merges the
+per-genome counters and order keys with exact integer ``all_reduce``
+(SUM, MIN), so dumpalign's output does not depend on the process count.
+Every process holds the whole read batch in global order and aligns its
+own shard of each batch; process 0 prints the summary.
 
 The backend follows a rule, never a failed attempt: ``nccl`` when the
 processes run on CUDA and each has a card of its own (``num_processes <=
@@ -33,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from shotgun_tpu_torch.parallel.mesh import Mesh, make_mesh
+from shotgun_tpu_torch.parallel.table_sharded import make_mesh_2d
 from shotgun_tpu_torch.utils.device import resolve_device
 
 DEFAULT_COORDINATOR = "localhost:29400"
@@ -99,6 +101,18 @@ def global_data_mesh() -> Mesh:
     if dist.is_initialized():
         return make_mesh([rank_device(dist.get_rank())], group=dist.group.WORLD)
     return make_mesh()
+
+
+def global_mesh_2d(table: int) -> Mesh:
+    """The ``("data", "table")`` mesh of the job (the JAX package's
+    ``make_mesh_2d()`` in a multi-process run): over the process group,
+    one device a process (``rank_device``), so a table axis of ``table``
+    spans that many processes; every process must call it.  Without a
+    group, over the local devices."""
+    if dist.is_initialized():
+        return make_mesh_2d([rank_device(dist.get_rank())], table=table,
+                            group=dist.group.WORLD)
+    return make_mesh_2d(table=table)
 
 
 def is_primary() -> bool:

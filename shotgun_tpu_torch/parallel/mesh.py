@@ -10,10 +10,11 @@ does not depend on the shard count, and equals the single-device run.
 A ``Mesh`` holds this process's devices and, across processes, a
 ``torch.distributed`` group: the shards of one process merge on its first
 device, then the processes merge by ``all_reduce`` with the same
-operations.  A device may repeat (``[cuda:0] * 4``): one card then runs
-four shards, one after another, against one copy of the table.  The JAX
-module's two-dispatch hash split is a TPU-runtime workaround and has no
-counterpart: every table goes through ``models.pipeline.align_batch``.
+operations, over the processes that hold other data rows only.  A device
+may repeat (``[cuda:0] * 4``): one card then runs four shards, one after
+another, against one copy of the table.  The JAX module's two-dispatch
+hash split is a TPU-runtime workaround and has no counterpart: every
+table goes through ``models.pipeline.align_batch``.
 """
 
 from __future__ import annotations
@@ -41,30 +42,53 @@ _COUNTERS = ("n_unique", "n_ambiguous", "n_unmapped", "n_filtered_reads",
 class Mesh(NamedTuple):
     """Devices over the axes ``("data",)`` or ``("data", "table")``.
 
-    ``devices`` are this process's, row-major over the axes (the device of
-    data row d and table column t is ``devices[d * table + t]``); ``shape``
-    holds the global axis sizes.  Across processes (``group`` not None),
-    each process holds the same number of devices and process p owns the
-    global data shards ``[p * local_data, (p + 1) * local_data)``, the JAX
-    package's process order; the table axis lies within one process."""
+    The job's devices are row-major over the axes and process-major, as
+    the JAX package's ``np.array(jax.devices()).reshape(data, table)``:
+    global device g is data row ``g // table`` and table column ``g %
+    table``, and process p holds the run ``[p * n, (p + 1) * n)`` of ``n =
+    len(devices)``, in that order; ``shape`` holds the global axis sizes.
+    A process holds whole data rows (``n % table == 0``) or part of one
+    (``table % n == 0``: a row spans ``table // n`` processes).  ``group``
+    is the job's process group (None: one process); ``row_group`` the
+    processes of this process's data row, None when the row lies within
+    it; ``col_group`` the processes at this process's place in every data
+    row, over which the data axis merges, None when it lies within the
+    process (``mesh_groups``)."""
 
     devices: Tuple[torch.device, ...]
     shape: Dict[str, int]
     group: Optional[dist.ProcessGroup] = None
+    row_group: Optional[dist.ProcessGroup] = None
+    col_group: Optional[dist.ProcessGroup] = None
 
     @property
     def table(self) -> int:
         return self.shape.get("table", 1)
 
     @property
+    def local_table(self) -> int:
+        """Table columns of this process."""
+        return min(self.table, len(self.devices))
+
+    @property
     def local_data(self) -> int:
-        """Data shards of this process."""
-        return len(self.devices) // self.table
+        """Data rows of this process (whole or in part)."""
+        return len(self.devices) // self.local_table
+
+    @property
+    def _first_device(self) -> int:
+        """The global index of this process's first device."""
+        return 0 if self.group is None else dist.get_rank(self.group) * len(self.devices)
 
     @property
     def first_shard(self) -> int:
-        """The global index of this process's first data shard."""
-        return 0 if self.group is None else dist.get_rank(self.group) * self.local_data
+        """The global index of this process's first data row."""
+        return self._first_device // self.table
+
+    @property
+    def first_column(self) -> int:
+        """The table column of this process's first device."""
+        return self._first_device % self.table
 
 
 def _device(d) -> torch.device:
@@ -91,12 +115,36 @@ def world_size(group: Optional[dist.ProcessGroup]) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def mesh_groups(group: Optional[dist.ProcessGroup], n_local: int, table: int
+                ) -> Tuple[Optional[dist.ProcessGroup], Optional[dist.ProcessGroup]]:
+    """(row_group, col_group) of a mesh whose processes, those of
+    ``group``, hold ``n_local`` devices each over a table axis of
+    ``table``.  A row that spans processes gets a group of its own, and so
+    does each place in a row; every process creates every group, in one
+    order, as ``torch.distributed.new_group`` requires, so every process
+    of ``group`` must call this together, once a mesh."""
+    if group is None:
+        return None, None
+    per_row = max(table // n_local, 1)
+    if per_row == 1:
+        return None, group
+    ranks = dist.get_process_group_ranks(group)
+    rows = len(ranks) // per_row
+    if rows == 1:
+        return group, None
+    me = dist.get_rank(group)
+    row_groups = [dist.new_group(ranks[d * per_row: (d + 1) * per_row]) for d in range(rows)]
+    col_groups = [dist.new_group(ranks[j::per_row]) for j in range(per_row)]
+    return row_groups[me // per_row], col_groups[me % per_row]
+
+
 def make_mesh(devices: Optional[Sequence] = None,
               group: Optional[dist.ProcessGroup] = None) -> Mesh:
     """A ``("data",)`` mesh over ``devices`` (``local_devices``' default),
     across the processes of ``group`` when given."""
     devs = local_devices(devices)
-    return Mesh(devs, {"data": world_size(group) * len(devs)}, group)
+    return Mesh(devs, {"data": world_size(group) * len(devs)}, group,
+                *mesh_groups(group, len(devs), 1))
 
 
 def _to(value, device: torch.device):
@@ -127,8 +175,9 @@ def shard_read_arrays(mesh: Mesh, *arrays) -> tuple:
     """Each device's rows of full host batches (numpy, ``[B, ...]``, B a
     multiple of the data axis; None passes through): one tuple an array,
     one entry a device.  Every process holds the whole batch and uploads
-    the contiguous rows of its own data shards, so the global batch, and
-    the merged result, are those of one process."""
+    the contiguous rows of its own data rows (every process of a row those
+    of that row), so the global batch, and the merged result, are those of
+    one process."""
     n = mesh.shape["data"]
     out = []
     for arr in arrays:
@@ -141,12 +190,20 @@ def shard_read_arrays(mesh: Mesh, *arrays) -> tuple:
         copies: Dict[tuple, torch.Tensor] = {}
         row = []
         for i, dev in enumerate(mesh.devices):
-            g = mesh.first_shard + i // mesh.table
+            g = mesh.first_shard + i // mesh.local_table
             if (g, dev) not in copies:
                 copies[(g, dev)] = upload(arr[g * per: (g + 1) * per], dev)
             row.append(copies[(g, dev)])
         out.append(tuple(row))
     return tuple(out)
+
+
+def require_group(group: Optional[dist.ProcessGroup], size: int, axis: str) -> None:
+    """Raise unless ``group`` holds the ``size`` processes that the
+    ``axis`` axis spans."""
+    if group is None or world_size(group) != size:
+        raise ValueError(f"the {axis} axis spans {size} processes, but its group is "
+                         f"{'missing' if group is None else world_size(group)}")
 
 
 def _all_reduce(t: torch.Tensor, op, group: dist.ProcessGroup) -> torch.Tensor:
@@ -167,8 +224,9 @@ def merge_data_shards(mesh: Mesh, aggs: Sequence[AggResult], rows_per_shard: int
     ``_lifted_psum_agg``).  Each shard's order keys ``row * (r + 2) +
     rank`` are lifted to global rows (global row = shard * rows_per_shard
     + local row; below ``BIG`` whenever the single-device keys are), then
-    counters SUM and keys MIN over the shards and, with a process group,
-    over the processes."""
+    counters SUM and keys MIN over the shards and, where the data axis
+    spans processes, over ``col_group`` (never over a row's processes,
+    which hold equal results)."""
     dev = mesh.devices[0]
     sums, keys = [], []
     for d, agg in enumerate(aggs):
@@ -180,9 +238,10 @@ def merge_data_shards(mesh: Mesh, aggs: Sequence[AggResult], rows_per_shard: int
             agg.unique_by_rec, agg.amb_by_rec]).to(dev))
     total = torch.stack(sums).sum(dim=0, dtype=_I32)
     first = torch.stack(keys).amin(dim=0)
-    if mesh.group is not None:
-        total = _all_reduce(total, dist.ReduceOp.SUM, mesh.group)
-        first = _all_reduce(first, dist.ReduceOp.MIN, mesh.group)
+    if mesh.shape["data"] > mesh.local_data:
+        require_group(mesh.col_group, mesh.shape["data"] // mesh.local_data, "data")
+        total = _all_reduce(total, dist.ReduceOp.SUM, mesh.col_group)
+        first = _all_reduce(first, dist.ReduceOp.MIN, mesh.col_group)
     n = len(_COUNTERS)
     return AggResult(*total[:n], unique_by_rec=total[n: n + r],
                      amb_by_rec=total[n + r:], first_key=first)
@@ -209,7 +268,7 @@ def align_aggregate_sharded(
     r = set_member[0].shape[1]
     aggs = []
     for d in range(mesh.local_data):
-        i = d * mesh.table
+        i = d * mesh.local_table
         if k >= 1:
             res = align_batch(probe_tab[i], set_member[i], codes[i], qual[i], lengths[i],
                               m, p, mrq, mkq, mg, k=k, has_mrq=has_mrq,

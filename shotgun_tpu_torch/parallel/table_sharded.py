@@ -14,6 +14,15 @@ and ``aggregate_batch`` once a row, and the rows merge over ``data`` as in
 ``parallel.mesh``: counters never merge over ``table``, where every device
 holds the same windows.
 
+A row may span processes, one card a process as ``torchrun`` deploys
+them: each process merges its own columns, then the row's processes merge
+by one ``all_reduce(MAX)`` a batch over ``row_group`` of one int64 tensor
+that packs (hit, set id, genome count, first occurrence) a window, misses
+packed to 0 (the JAX package's four ``pmax``es give the same values), and
+every process of the row finishes the batch alike.  A reference's table
+is cut where it lives (``KmerReference.sort_columns``), and each device
+receives only its own key range.
+
 The port's sorted tables hold live rows only (``ops/probe_sort.py``), so
 a split needs no pad rows: it cuts where the key changes, and rows of one
 key (a device-built table may repeat them) stay on one shard.  One split
@@ -40,31 +49,39 @@ from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
 from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted_words
 from shotgun_tpu_torch.parallel.mesh import (
     Mesh,
+    _all_reduce,
     _to,
     local_devices,
     merge_data_shards,
+    mesh_groups,
+    require_group,
     world_size,
 )
-from shotgun_tpu_torch.reference import not_ported
+
+#: bits of the packed row merge: hit, first occurrence, then the set id
+#: (31 bits) above the genome count
+_HIT_BIT, _FIRST_BIT, _SID_BITS = 62, 61, 31
 
 
 def make_mesh_2d(devices: Optional[Sequence] = None, data: Optional[int] = None,
                  table: int = 1, group: Optional[dist.ProcessGroup] = None) -> Mesh:
     """A ``("data", "table")`` mesh over this process's ``devices``
     (``mesh.local_devices``' default), across the processes of ``group``
-    when given.  ``data`` and ``table`` are the global axis sizes, as in
-    the JAX package (``data`` by default all the devices over ``table``);
-    a table axis must lie within one process."""
+    when given, each of which must call it too (``mesh.mesh_groups``).
+    ``data`` and ``table`` are the global axis sizes, as in the JAX
+    package (``data`` by default all the devices over ``table``); a
+    process holds whole data rows or a whole part of one."""
     devs = local_devices(devices)
-    total = world_size(group) * len(devs)
+    n = len(devs)
+    total = world_size(group) * n
     data = total // table if data is None else data
     if data * table != total:
         raise ValueError(f"a {data} x {table} mesh needs {data * table} devices, "
                          f"have {total}")
-    if len(devs) % table:
-        raise not_ported(f"a table axis of {table} devices across processes of "
-                         f"{len(devs)} devices each", 8)
-    return Mesh(devs, {"data": data, "table": table}, group)
+    if n % table and table % n:
+        raise ValueError(f"a table axis of {table} devices neither holds nor fits in "
+                         f"whole processes of {n} devices each")
+    return Mesh(devs, {"data": data, "table": table}, group, *mesh_groups(group, n, table))
 
 
 def _require_sorted(tab) -> None:
@@ -108,21 +125,42 @@ def shard_sorted_table(tab, n_shards: int) -> List[SortedTableDev]:
 
 
 def device_put_sharded_table(mesh: Mesh, parts: Sequence[SortedTableDev]) -> tuple:
-    """Part t of ``shard_sorted_table`` on the devices of table column t of
-    every data row: one entry a device of the mesh (a device met twice for
-    one part gets one copy; a part already there is not copied)."""
+    """Part t of ``shard_sorted_table`` (all ``mesh.table`` of them) on the
+    devices of table column t of every data row: one entry a device of
+    this process (a device met twice for one part gets one copy; a part
+    already there is not copied)."""
     if isinstance(parts, HashTableDev):
         _require_sorted(parts)
     for part in parts:
         _require_sorted(part)
     if len(parts) != mesh.table:
         raise ValueError(f"{len(parts)} table parts for a table axis of {mesh.table}")
+    columns = [(mesh.first_column + i % mesh.local_table, dev)
+               for i, dev in enumerate(mesh.devices)]
     copies = {}
-    for i, dev in enumerate(mesh.devices):
-        key = (i % mesh.table, dev)
+    for key in columns:
         if key not in copies:
-            copies[key] = _to(parts[key[0]], dev)
-    return tuple(copies[(i % mesh.table, dev)] for i, dev in enumerate(mesh.devices))
+            copies[key] = _to(parts[key[0]], key[1])
+    return tuple(copies[key] for key in columns)
+
+
+def _merge_row(mesh: Mesh, hit, sid, gc, first_occ, r: int) -> list:
+    """This process's per-window probe results merged with those of the
+    other processes of its data row: one ``all_reduce(MAX)`` over
+    ``row_group`` of the packed windows.  Exact, as only one key range can
+    hit a key."""
+    require_group(mesh.row_group, mesh.table // mesh.local_table, "table")
+    gc_bits = max(r.bit_length(), 1)
+    if gc_bits + _SID_BITS > _FIRST_BIT:
+        raise ValueError(f"{r} records do not pack beside a 31-bit set id")
+    i64 = torch.int64
+    packed = ((1 << _HIT_BIT) | (first_occ.to(i64) << _FIRST_BIT)
+              | (sid.to(i64) << gc_bits) | gc.to(i64))
+    packed = _all_reduce(torch.where(hit, packed, 0), dist.ReduceOp.MAX, mesh.row_group)
+    hit = packed > 0
+    return [hit, ((packed >> gc_bits) & ((1 << _SID_BITS) - 1)).to(torch.int32),
+            (packed & ((1 << gc_bits) - 1)).to(torch.int32),
+            ((packed >> _FIRST_BIT) & 1).to(torch.bool)]
 
 
 def align_aggregate_table_sharded(
@@ -139,11 +177,12 @@ def align_aggregate_table_sharded(
 ) -> AggResult:
     """DP x TP pseudo-alignment (k >= 1): reads sharded over ``data``, the
     sorted table over ``table``.  Equal to the single-device
-    ``aggregate_batch`` exactly, for any axis sizes.  The loops wait for
-    no device."""
+    ``aggregate_batch`` exactly, for any axis sizes and any layout of
+    processes.  Within a process the loops wait for no device."""
     for part in tab:
         _require_sorted(part)
-    t = mesh.table
+    t = mesh.local_table
+    r = set_member[0].shape[1]
     aggs = []
     for d in range(mesh.local_data):
         first = d * t
@@ -163,10 +202,12 @@ def align_aggregate_table_sharded(
             else:
                 merged = [merged[0] | part[0], torch.maximum(merged[1], part[1]),
                           torch.maximum(merged[2], part[2]), merged[3] | part[3]]
+        if mesh.table > t:
+            merged = _merge_row(mesh, *merged, r)
         hit, sid, gc, first_occ = merged
         res = core_from_probe(
             (hit, torch.where(hit, sid, -1), gc, None), set_member[first], qual[first],
             lengths[first], m, p, mrq, mkq, mg, k=k, has_mrq=has_mrq,
             has_mkq=has_mkq, has_mg=has_mg, qsum=qsum, pre_first_occ=first_occ)
         aggs.append(aggregate_batch(res, row_valid[first]))
-    return merge_data_shards(mesh, aggs, codes[0].shape[0], set_member[0].shape[1])
+    return merge_data_shards(mesh, aggs, codes[0].shape[0], r)

@@ -39,7 +39,7 @@ from shotgun_tpu_torch.index.extsim import apply_similarity_filter
 from shotgun_tpu_torch.index.hashtable import ProbeTable, build_probe_table
 from shotgun_tpu_torch.models.pipeline import DeviceTable
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
-from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table, sorted_table_host
+from shotgun_tpu_torch.ops.probe_sort import sorted_table, sorted_table_host
 from shotgun_tpu_torch.utils.device import resolve_device
 
 PROBE_ENV = "SHOTGUN_TPU_PROBE"
@@ -48,12 +48,6 @@ PROBE_ENV = "SHOTGUN_TPU_PROBE"
 class KDBFormatError(Exception):
     """A .kdb container cannot be read (the CLI maps this to the
     reference's 'Error: Incorrect format of input file.' message)."""
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to shotgun_tpu_torch "
-        f"(ROADMAP.md, Queue 1 item {item})")
 
 
 def reverse_complement(seq: str) -> str:
@@ -593,17 +587,21 @@ class KmerReference:
                 method = "sort"
         key = (method, str(device))
         if key not in self._device_tables:
-            if method == "sort" and self._built is not None:
-                built = self._built
-                tab = SortedTableDev(words=(built["keys"].to(device),),
-                                     sid=built["sid"].to(device), gc=built["gc"].to(device))
-            elif method == "sort":
-                tab = sorted_table(*sorted_table_host(self.index), device)
+            if method == "sort":
+                tab = sorted_table(*self.sort_columns(), device)
             else:
                 pt = self.probe_table(method)
                 tab = hash_table_to_device(pt.table, pt.stash, device)
             self._device_tables[key] = tab
         return self._device_tables[key]
+
+    def sort_columns(self) -> tuple:
+        """(words, sid, gc): the key-sorted table's columns where they live,
+        a device build's rows on its device, else the host index's
+        (``sorted_table_host``)."""
+        if self._built is not None:
+            return (self._built["keys"],), self._built["sid"], self._built["gc"]
+        return sorted_table_host(self.index)
 
     def set_member_dense(self) -> np.ndarray:
         """[S, R] uint8 record-membership matrix of the genome sets (at

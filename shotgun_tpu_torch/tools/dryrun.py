@@ -4,8 +4,10 @@
 ``entry()`` gives one align + aggregate step and its example arguments on
 a tiny problem; ``dryrun_multichip(n)`` runs that step over an n-device
 data mesh, over a DP x TP mesh (n >= 4, even), each held equal to the
-single-device step, and then two CLI processes joined by
-``torch.distributed``, whose process 0 must print the plain golden.
+single-device step, then two CLI processes joined by
+``torch.distributed``, whose process 0 must print the plain golden, and
+two library processes whose 1 x 2 mesh splits the table across them
+(``table_axis_process``), each held equal to one device.
 
     python -m shotgun_tpu_torch.tools.dryrun [--devices N]
 
@@ -22,14 +24,18 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from shotgun_tpu_torch.aligner import PseudoAlignment
+from shotgun_tpu_torch.io.data_file import FASTAFile, FASTAQFile
 from shotgun_tpu_torch.models.pipeline import AggResult, aggregate_batch, align_batch
 from shotgun_tpu_torch.ops.encode import pack_codes_2bit
 from shotgun_tpu_torch.ops.probe_sort import sorted_table_host
+from shotgun_tpu_torch.parallel import distributed
 from shotgun_tpu_torch.parallel.mesh import (
     align_aggregate_sharded,
     make_mesh,
@@ -52,6 +58,17 @@ K = 11
 GATES = dict(k=K, has_mrq=False, has_mkq=False, has_mg=False)
 #: m, p, mrq, mkq, mg
 PARAMS = (1, 1, 0, 0, 0)
+#: a table-axis process's m, p, mrq, mkq, mg (every gate on) and batch
+LIBRARY_PARAMS = (1, 1, 70, 75, 2)
+LIBRARY_BATCH = 10
+#: the program of a table-axis process: argv fa, fq, k, table, devices a
+#: process; prints its summary as one JSON line
+TABLE_AXIS_CHILD = r"""
+import json, sys
+from shotgun_tpu_torch.tools.dryrun import table_axis_process
+fa, fq, k, table, n_local = sys.argv[1:]
+print(json.dumps(table_axis_process(fa, fq, int(k), int(table), int(n_local))))
+"""
 
 
 def _tiny_problem(n_reads: int, device: torch.device, read_len: int = 40
@@ -100,8 +117,8 @@ def dryrun_multichip(n_devices: int, device: Optional[Union[str, torch.device]] 
     """The data-parallel step over ``n_devices`` (reads sharded, table
     replicated, counters merged by SUM and order keys by MIN), the DP x TP
     step on a (n/2) x 2 mesh when n >= 4 is even (the sorted table in 2
-    key ranges), each equal to the single-device step, then the 2-process
-    CLI check."""
+    key ranges), each equal to the single-device step, then the
+    multi-process checks (``_dryrun_multiprocess``)."""
     device = resolve_device(device)
     if device.type == "cuda" and torch.cuda.device_count() >= n_devices:
         devices = [torch.device("cuda", i) for i in range(n_devices)]
@@ -148,23 +165,25 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_two_processes(argv: List[str], env: Dict[str, str], timeout: float = 300.0
-                      ) -> List[Tuple[str, str]]:
-    """``python argv`` from the repository root as processes 0 and 1 of a
-    2-process run (``SHOTGUN_TPU_NPROCS=2``, a free coordinator port on
+def run_processes(argv: List[str], env: Dict[str, str], timeout: float = 300.0,
+                  n: int = 2) -> List[Tuple[str, str]]:
+    """``python argv`` from the repository root as processes 0 to n - 1 of
+    an n-process run (``SHOTGUN_TPU_NPROCS=n``, a free coordinator port on
     localhost) in the environment ``env``: [(stdout, stderr)] of each.
-    Both must exit 0 within ``timeout``; a process still running then is
+    All must exit 0 within ``timeout``; a process still running then is
     killed."""
     port = free_port()
     procs = []
     try:
-        for rank in range(2):
+        for rank in range(n):
             procs.append(subprocess.Popen(
                 [sys.executable, *argv], cwd=REPO, text=True, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE,
-                env=dict(env, SHOTGUN_TPU_NPROCS="2", SHOTGUN_TPU_PROC_ID=str(rank),
+                env=dict(env, SHOTGUN_TPU_NPROCS=str(n), SHOTGUN_TPU_PROC_ID=str(rank),
                          SHOTGUN_TPU_COORDINATOR=f"localhost:{port}")))
-        outs = [proc.communicate(timeout=timeout) for proc in procs]
+        deadline = time.monotonic() + timeout
+        outs = [proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+                for proc in procs]
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -176,10 +195,42 @@ def run_two_processes(argv: List[str], env: Dict[str, str], timeout: float = 300
     return outs
 
 
+def table_axis_process(fa: str, fq: str, k: int, table: int, n_local: int) -> dict:
+    """One process of a run that ``run_processes`` started: it joins the
+    group, and aligns the reads of ``fq`` against the genomes of ``fa`` at
+    ``k`` (LIBRARY_PARAMS, batches of LIBRARY_BATCH) over the job's
+    ``("data", "table")`` mesh with a table axis of ``table``, ``n_local``
+    devices a process (its ``rank_device`` repeated; one:
+    ``global_mesh_2d``).  Returns the summary."""
+    rank = int(os.environ["SHOTGUN_TPU_PROC_ID"])
+    distributed.initialize(os.environ["SHOTGUN_TPU_COORDINATOR"],
+                           int(os.environ["SHOTGUN_TPU_NPROCS"]), rank)
+    try:
+        dev = distributed.rank_device(rank)
+        mesh = (distributed.global_mesh_2d(table) if n_local == 1 else make_mesh_2d(
+            [dev] * n_local, table=table, group=torch.distributed.group.WORLD))
+        aln = PseudoAlignment(KmerReference(k, FASTAFile(fa).container, device=dev), dev)
+        aln.align_packed_reads(FASTAQFile(fq).container.to_read_batch(), *LIBRARY_PARAMS,
+                               batch_size=LIBRARY_BATCH, mesh=mesh, store_reads=False)
+        return aln.get_summary()
+    finally:
+        distributed.shutdown()
+
+
+def one_device_summary(fa: str, fq: str, k: int, device: torch.device) -> dict:
+    """``table_axis_process``'s alignment on ``device`` alone."""
+    aln = PseudoAlignment(KmerReference(k, FASTAFile(fa).container, device=device), device)
+    aln.align_packed_reads(FASTAQFile(fq).container.to_read_batch(), *LIBRARY_PARAMS,
+                           batch_size=LIBRARY_BATCH, store_reads=False)
+    return aln.get_summary()
+
+
 def _dryrun_multiprocess(device: torch.device) -> None:
     """Two port CLI processes (``SHOTGUN_TPU_NPROCS=2``) run the plain
     golden dumpalign on ``device``'s type; process 0's stdout must end in
-    the golden and process 1 must print no summary."""
+    the golden and process 1 must print no summary.  Then two library
+    processes split the table of the golden corpus over a 1 x 2 mesh, and
+    each one's summary must be the single-device one."""
     golden_dir = os.path.join(REPO, "tests", "golden")
     manifest = os.path.join(golden_dir, "manifest.json")
     if not os.path.exists(manifest):
@@ -188,9 +239,9 @@ def _dryrun_multiprocess(device: torch.device) -> None:
     with open(manifest) as fh:
         args = [a.replace("data/", os.path.join(golden_dir, "data") + "/")
                 for a in json.load(fh)["plain"]["args"]]
-    outs = run_two_processes(
-        ["-m", "shotgun_tpu_torch", *args, "--batch-size", "16", "--profile"],
-        dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE=device.type))
+    env = dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE=device.type)
+    outs = run_processes(
+        ["-m", "shotgun_tpu_torch", *args, "--batch-size", "16", "--profile"], env)
     with open(os.path.join(golden_dir, "plain.out")) as fh:
         golden = fh.read()
     if not outs[0][0].endswith(golden):
@@ -200,6 +251,15 @@ def _dryrun_multiprocess(device: torch.device) -> None:
     backend = outs[0][1].split("backend ", 1)[1].split()[0]
     print(f"dryrun_multichip ok (2-process torch.distributed, {backend}): "
           "process 0's dumpalign JSON == reference golden", flush=True)
+
+    fa, fq = (os.path.join(golden_dir, "data", name) for name in ("corpus.fa", "corpus.fq"))
+    outs = run_processes(["-c", TABLE_AXIS_CHILD, fa, fq, str(K), "2", "1"], env)
+    want = one_device_summary(fa, fq, K, device)
+    if any(json.loads(out) != want for out, _ in outs):
+        raise AssertionError("dryrun table axis across 2 processes: a summary differs "
+                             "from one device")
+    print("dryrun_multichip ok (table axis across 2 processes, 1x2 mesh): both "
+          "summaries == one device", flush=True)
 
 
 def main() -> None:

@@ -2,9 +2,11 @@
 CPU): two port CLI processes (SHOTGUN_TPU_NPROCS=2) print the recorded
 golden from process 0 and nothing from process 1, on the -g, -r and -a
 routes, as the JAX package's two-process runs do (tests/test_distributed.py);
-and the library's align_packed_reads over a mesh of 2 processes x 3
-shards equals one device.  Every process has a timeout of its own, so a
-hung rank fails its test."""
+the library's align_packed_reads over a mesh of 2 processes x 3 shards
+equals one device; and a table axis across processes (1 x 2, 2 x 2 over
+4 processes, 1 x 4 over 2 processes of 2 devices) equals one device and
+the JAX package.  Every run has a timeout, so a hung rank fails its
+test."""
 
 import json
 import os
@@ -16,7 +18,13 @@ from shotgun_tpu_torch import cli
 from shotgun_tpu_torch.aligner import PseudoAlignment
 from shotgun_tpu_torch.io.data_file import FASTAFile, FASTAQFile
 from shotgun_tpu_torch.reference import KmerReference
-from shotgun_tpu_torch.tools.dryrun import run_two_processes
+from shotgun_tpu_torch.tools.dryrun import (
+    LIBRARY_BATCH,
+    LIBRARY_PARAMS,
+    TABLE_AXIS_CHILD,
+    one_device_summary,
+    run_processes,
+)
 
 torch.set_num_threads(2)
 
@@ -43,12 +51,13 @@ def _case_args(name: str):
     return [a.replace("data/", DATA + "/") for a in manifest[name]["args"]]
 
 
-def _run_two(argv, env=None):
-    """``python argv`` as processes 0 and 1 of a 2-process run on the CPU;
-    [(stdout, stderr)] of each, both exited 0 within TIMEOUT."""
+def _run_two(argv, env=None, n=2, timeout=TIMEOUT):
+    """``python argv`` as processes 0 to n - 1 of an n-process run on the
+    CPU; [(stdout, stderr)] of each, all exited 0 within ``timeout``."""
     base = {k: v for k, v in os.environ.items() if k not in CLEARED}
-    return run_two_processes(argv, dict(base, SHOTGUN_TPU_TORCH_DEVICE="cpu",
-                                        OMP_NUM_THREADS="2", **(env or {})), TIMEOUT)
+    return run_processes(argv, dict(base, SHOTGUN_TPU_TORCH_DEVICE="cpu",
+                                    OMP_NUM_THREADS="1" if n > 2 else "2", **(env or {})),
+                         timeout, n)
 
 
 @pytest.mark.parametrize("case", ["plain", "combo"])
@@ -156,7 +165,46 @@ def test_dryrun_multichip_on_the_cpu(capsys, monkeypatch):
         "dryrun_multichip ok (dp): 8 devices, 64 reads, unique=64",
         "dryrun_multichip ok (dp x tp): 4x2 mesh, 64 reads, unique=64",
         "dryrun_multichip ok (2-process torch.distributed, gloo): process 0's "
-        "dumpalign JSON == reference golden"]
+        "dumpalign JSON == reference golden",
+        "dryrun_multichip ok (table axis across 2 processes, 1x2 mesh): both "
+        "summaries == one device"]
+
+
+def _jax_summary(k, data, table):
+    """The JAX package's summary of TABLE_AXIS_CHILD's alignment, on a JAX
+    data x table mesh of the CPU devices of tests/conftest.py."""
+    import jax
+
+    from shotgun_tpu.aligner import PseudoAlignment as JaxPseudoAlignment
+    from shotgun_tpu.io.data_file import FASTAFile as JaxFASTAFile
+    from shotgun_tpu.io.data_file import FASTAQFile as JaxFASTAQFile
+    from shotgun_tpu.parallel.table_sharded import make_mesh_2d as jax_mesh_2d
+    from shotgun_tpu.reference import KmerReference as JaxKmerReference
+
+    aln = JaxPseudoAlignment(JaxKmerReference(k, list(JaxFASTAFile(FA).container)))
+    aln.align_packed_reads(JaxFASTAQFile(FQ).container.to_read_batch(), *LIBRARY_PARAMS,
+                           batch_size=LIBRARY_BATCH, store_reads=False,
+                           mesh=jax_mesh_2d(jax.devices()[: data * table], data, table))
+    return json.loads(json.dumps(aln.get_summary()))
+
+
+@pytest.mark.parametrize("k,data,table,nprocs", [
+    (11, 1, 2, 2),   # one row over 2 processes of one device
+    (35, 2, 2, 4),   # 2 rows over 4 processes: a row group and a column group each
+    (11, 1, 4, 2),   # one row over 2 processes of 2 devices each
+], ids=["1x2-k11", "2x2-k35-4procs", "1x4-2procs-of-2"])
+def test_table_axis_across_processes(k, data, table, nprocs):
+    """The table axis spans processes (tools/dryrun.py table_axis_process,
+    every gate on, batches of 10 with an uneven last one): every process's
+    summary equals one device's and the JAX package's on its own mesh of
+    the same shape."""
+    n_local = data * table // nprocs
+    outs = _run_two(["-c", TABLE_AXIS_CHILD, FA, FQ, str(k), str(table), str(n_local)],
+                    n=nprocs, timeout=90)
+    want = json.loads(json.dumps(one_device_summary(FA, FQ, k, torch.device("cpu"))))
+    assert [json.loads(out) for out, _ in outs] == [want] * nprocs
+    assert want == _jax_summary(k, data, table)
+    assert want["Statistics"]["unique_mapped_reads"]
 
 
 def test_entry_step_matches_the_jax_entry():

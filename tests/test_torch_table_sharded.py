@@ -2,7 +2,11 @@
 key-sorted table range-partitioned over a 'table' axis, reads over 'data'.
 Held against the JAX package's align_aggregate_table_sharded on the 8
 virtual CPU devices of tests/conftest.py and against the port's single
-device, for every mesh shape; every field exactly (tolerance 0)."""
+device, for every mesh shape; every field exactly (tolerance 0).  The
+library route (align_packed_reads on a 2-D mesh) is held against the
+JAX package's on every probe route, above the auto crossover too, and
+places only key ranges on the devices.  A table axis across processes:
+tests/test_torch_distributed.py."""
 
 import jax
 import jax.numpy as jnp
@@ -15,11 +19,12 @@ from shotgun_tpu.io.packing import pack_reads as jax_pack_reads
 from shotgun_tpu.io.records import SeqRecord as JaxSeqRecord
 from shotgun_tpu.ops.probe_sort import sorted_table_host as jax_sorted_table_host
 from shotgun_tpu.ops.probe_sort import sorted_table_host_words
+from shotgun_tpu.aligner import PseudoAlignment as JaxPseudoAlignment
 from shotgun_tpu.parallel import mesh as jmesh
 from shotgun_tpu.parallel import table_sharded as jts
 from shotgun_tpu.reference import KmerReference as JaxKmerReference
 from shotgun_tpu.utils.synth import synth_genomes, synth_reads
-from shotgun_tpu_torch import convert
+from shotgun_tpu_torch import aligner, convert
 from shotgun_tpu_torch.aligner import PseudoAlignment
 from shotgun_tpu_torch.io.packing import ReadBatch
 from shotgun_tpu_torch.models import pipeline as tpipe
@@ -27,11 +32,19 @@ from shotgun_tpu_torch.ops.encode import pack_codes_2bit
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table_host
 from shotgun_tpu_torch.parallel import mesh as tmesh
 from shotgun_tpu_torch.parallel import table_sharded as tts
+from shotgun_tpu_torch.reference import KmerReference
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
 K, L, B = 11, 60, 64
 MESHES = [(4, 2), (2, 4), (1, 8), (8, 1)]
+#: align_packed_reads' MRQ, MKQ and MG on the corpus of _setup: each
+#: filters some reads or windows, and most reads map
+LIBRARY_GATES = (64, 65, 1)
+
+
+def _genomes():
+    return synth_genomes(np.random.default_rng(7), 4, 3000)
 
 
 def _setup(k=K):
@@ -53,6 +66,12 @@ def _packed(batch, lpad=64):
     qual[:, :length] = batch.qual
     return (pack_codes_2bit(codes), qual, np.asarray(batch.lengths, dtype=np.int32),
             np.ones(n, dtype=bool))
+
+
+def _port_batch(reads) -> ReadBatch:
+    """The port's ReadBatch of a JAX one."""
+    return ReadBatch(ids=list(reads.ids), codes=reads.codes, qual=reads.qual,
+                     lengths=reads.lengths)
 
 
 def _assert_agg_equal(got, want):
@@ -265,26 +284,75 @@ def test_hash_table_rejected_under_table_sharding():
 
 
 def test_make_mesh_2d_shapes(monkeypatch):
+    """One process, and process 3 of 4 in the two layouts a mesh takes
+    across processes (the groups stubbed; tests/test_torch_distributed.py
+    makes real ones): whole data rows a process, or a part of one row;
+    any other layout raises ValueError naming the sizes."""
     mesh = tts.make_mesh_2d([CPU] * 8, table=2)
     assert mesh.shape == {"data": 4, "table": 2} and mesh.local_data == 4
+    assert (mesh.local_table, mesh.first_shard, mesh.first_column) == (2, 0, 0)
     with pytest.raises(ValueError, match="needs 6 devices"):
         tts.make_mesh_2d([CPU] * 8, data=3, table=2)
-    # two processes of one device each: a table axis of 2 would span them
-    monkeypatch.setattr(tts, "world_size", lambda group: 2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tts.make_mesh_2d([CPU], data=1, table=2, group=object())
+    group = object()
+    monkeypatch.setattr(tts, "world_size", lambda g: 4)
+    monkeypatch.setattr(tts, "mesh_groups", lambda g, n, table: ("row", "col"))
+    monkeypatch.setattr(tmesh.dist, "get_rank", lambda g: 3)
+    # 4 devices a process, table 2: two whole rows, global rows 6 and 7
+    mesh = tts.make_mesh_2d([CPU] * 4, table=2, group=group)
+    assert mesh.shape == {"data": 8, "table": 2}
+    assert (mesh.local_data, mesh.local_table, mesh.first_shard, mesh.first_column) == (
+        2, 2, 6, 0)
+    # 2 devices a process, table 4: columns 2 and 3 of global row 1
+    mesh = tts.make_mesh_2d([CPU] * 2, table=4, group=group)
+    assert mesh.shape == {"data": 2, "table": 4}
+    assert (mesh.local_data, mesh.local_table, mesh.first_shard, mesh.first_column) == (
+        1, 2, 1, 2)
+    assert (mesh.row_group, mesh.col_group) == ("row", "col")
+    assert tmesh.shard_read_arrays(mesh, np.arange(4))[0][1].tolist() == [2, 3]
+    # 3 processes of 4 devices, table 6: a row would split a process
+    monkeypatch.setattr(tts, "world_size", lambda g: 3)
+    with pytest.raises(ValueError, match="table axis of 6 devices .* of 4 devices"):
+        tts.make_mesh_2d([CPU] * 4, table=6, group=group)
+
+
+def test_merge_over_a_missing_or_wrong_group_raises(monkeypatch):
+    """A data or table axis that spans processes merges over its own group
+    only: a mesh without it, or with a group of another size, raises."""
+    index, reads = _setup()
+    ref = convert.reference(index, CPU)
+    member = ref.set_member_device(CPU)
+    monkeypatch.setattr(tmesh.dist, "get_rank", lambda g: 0)
+    group = object()
+    args = (1, 1, 0, 0, 0)
+    flags = dict(k=K, has_mrq=False, has_mkq=False, has_mg=False)
+    # a 1 x 2 mesh whose row spans 2 processes of one device, no row group
+    mesh = tmesh.Mesh((CPU,), {"data": 1, "table": 2}, group)
+    parts = tts.shard_sorted_table(ref.sort_columns(), 2)
+    with pytest.raises(ValueError, match="table axis spans 2 processes, but its group "
+                                         "is missing"):
+        tts.align_aggregate_table_sharded(
+            (parts[0],), (member,), *tmesh.shard_read_arrays(mesh, *_packed(reads)),
+            *args, mesh=mesh, **flags)
+    # a 2-row data mesh over 2 processes whose data group has 3
+    monkeypatch.setattr(tmesh, "world_size", lambda g: 3)
+    mesh = tmesh.Mesh((CPU,), {"data": 2}, group, None, group)
+    with pytest.raises(ValueError, match="data axis spans 2 processes, but its group is 3"):
+        tmesh.align_aggregate_sharded(
+            (ref.device_probe_tables(CPU, "sort"),), (member,),
+            *tmesh.shard_read_arrays(mesh, *_packed(reads)), *args, mesh=mesh, **flags)
 
 
 @pytest.mark.parametrize("data,table", [(2, 2), (4, 2), (1, 4)])
 def test_align_packed_reads_on_a_2d_mesh(data, table, monkeypatch):
     """The library route: align_packed_reads over a (data, table) mesh
     splits the reference's sort table and equals one device, with an
-    uneven last batch; on the hash route it raises the TypeError."""
+    uneven last batch; on the hash route it runs data parallel with the
+    table replicated, as the JAX package runs every mesh, and equals one
+    device too."""
     index, reads = _setup()
     ref = convert.reference(index, CPU)
-    batch = ReadBatch(ids=list(reads.ids), codes=reads.codes, qual=reads.qual,
-                      lengths=reads.lengths)
-    gates = (70, 60, 2)
+    batch = _port_batch(reads)
+    gates = LIBRARY_GATES
     one = PseudoAlignment(ref, CPU)
     one.align_packed_reads(batch, 1, 1, *gates, batch_size=24)
     mesh = tts.make_mesh_2d([CPU] * (data * table), data=data, table=table)
@@ -292,6 +360,84 @@ def test_align_packed_reads_on_a_2d_mesh(data, table, monkeypatch):
     sharded.align_packed_reads(batch, 1, 1, *gates, batch_size=24, mesh=mesh,
                                store_reads=False)
     assert sharded.get_summary() == one.get_summary()
+    stats = one.get_summary()["Statistics"]
+    assert stats["unique_mapped_reads"] and stats["filtered_quality_reads"]
+    assert stats["filtered_quality_kmers"] and stats["filtered_hr_kmers"]
     monkeypatch.setenv("SHOTGUN_TPU_PROBE", "hash")
-    with pytest.raises(TypeError, match="sort-merge probe only"):
-        PseudoAlignment(ref, CPU).align_packed_reads(batch, mesh=mesh, store_reads=False)
+    hashed = PseudoAlignment(ref, CPU)
+    hashed.align_packed_reads(batch, 1, 1, *gates, batch_size=24, mesh=mesh,
+                              store_reads=False)
+    assert hashed.mesh_probe_tables(mesh)[0] is tmesh.align_aggregate_sharded
+    assert hashed.get_summary() == one.get_summary()
+
+
+@pytest.mark.parametrize("probe", ["auto", "hash", "hash16"])
+def test_2d_mesh_above_the_auto_crossover_matches_jax(probe, monkeypatch):
+    """With AUTO_HASH_MIN_KEYS below the corpus's distinct k-mers on both
+    packages, so that auto picks the 16-slot table for one device,
+    align_packed_reads on a 2 x 2 mesh prints the JAX package's summary on
+    a JAX 2 x 2 mesh: on auto through the split sort table (no hash table
+    is made, the whole table placed on no device), on an explicit hash or
+    hash16 data parallel with that table replicated."""
+    index, reads = _setup()
+    for cls in (JaxKmerReference, KmerReference):
+        monkeypatch.setattr(cls, "AUTO_HASH_MIN_KEYS", 100)
+    if probe == "auto":
+        monkeypatch.delenv("SHOTGUN_TPU_PROBE", raising=False)
+    else:
+        monkeypatch.setenv("SHOTGUN_TPU_PROBE", probe)
+    batch = _port_batch(reads)
+    gates = LIBRARY_GATES
+    jaln = JaxPseudoAlignment(JaxKmerReference(K, _index=index))
+    jaln.align_packed_reads(reads, 1, 1, *gates, batch_size=24, store_reads=False,
+                            mesh=jts.make_mesh_2d(jax.devices()[:4], data=2, table=2))
+    ref = convert.reference(index, CPU)
+    assert ref.probe_method("auto") == "hash16"
+    if probe == "auto":
+        monkeypatch.setattr(ref, "device_probe_tables", None)
+    aln = PseudoAlignment(ref, CPU)
+    aln.align_packed_reads(batch, 1, 1, *gates, batch_size=24, store_reads=False,
+                           mesh=tts.make_mesh_2d([CPU] * 4, data=2, table=2))
+    assert aln.get_summary() == jaln.get_summary()
+    assert bool(ref._probe_tables) == (probe != "auto")
+
+
+@pytest.mark.parametrize("data,table", [(2, 2), (1, 4), (2, 3)])
+def test_table_axis_places_key_ranges_only(data, table, monkeypatch):
+    """A host-built reference on a (data, table) mesh: device_probe_tables
+    is never called, each device holds its column's key range cut from the
+    host columns, the ranges' rows sum to the table's, and two runs on one
+    alignment place them once; a device-built reference's ranges are the
+    same rows, sliced where they were built."""
+    index, reads = _setup()
+    ref = convert.reference(index, CPU)
+    monkeypatch.setattr(ref, "device_probe_tables", None)
+    cuts = []
+    monkeypatch.setattr(aligner, "shard_sorted_table",
+                        lambda cols, n: cuts.append(n) or tts.shard_sorted_table(cols, n))
+    batch = _port_batch(reads)
+    mesh = tts.make_mesh_2d([CPU] * (data * table), data=data, table=table)
+    aln = PseudoAlignment(ref, CPU)
+    for _ in range(2):
+        aln.align_packed_reads(batch, 1, 1, *LIBRARY_GATES, batch_size=24, mesh=mesh,
+                               store_reads=False)
+    assert cuts == [table]
+    step, tabs = aln.mesh_probe_tables(mesh)
+    assert step is tts.align_aggregate_table_sharded and len(tabs) == data * table
+    rows = [t.sid.numel() for t in tabs]
+    assert rows[:table] * data == rows and sum(rows[:table]) == index.num_kmers
+    assert max(rows) < index.num_kmers
+    (words,), _, _ = sorted_table_host(ref.index)
+    np.testing.assert_array_equal(torch.cat([t.words[0] for t in tabs[:table]]).numpy(),
+                                  words)
+    monkeypatch.undo()
+    one = PseudoAlignment(ref, CPU)
+    one.align_packed_reads(batch, 1, 1, *LIBRARY_GATES, batch_size=24)
+    assert aln._n_unique == 2 * one._n_unique > 0
+    # the device build numbers its sets otherwise: compare their members
+    built = KmerReference.from_device_build(convert.genome_arrays(_genomes()), K, CPU)
+    for got, want in zip(tts.shard_sorted_table(built.sort_columns(), table),
+                         tts.shard_sorted_table(ref.sort_columns(), table)):
+        assert torch.equal(got.words[0], want.words[0]) and torch.equal(got.gc, want.gc)
+        np.testing.assert_array_equal(built.set_member_dense()[got.sid.numpy()],
+                                      ref.set_member_dense()[want.sid.numpy()])
