@@ -17,7 +17,8 @@ Phases, one line each:
      device-assembled 16-slot table of phase 3 with a stash of planted
      entries; and H1 on the packed 32 Mbp genome as one row, as the device
      build runs it), H2 also on the strain panel's 4-slot table (the
-     `hash` route's, built here from phase 3's host index) with a batch of
+     `hash` route's, assembled on the card from phase 3's host index and
+     held bit for bit against the host builder's) with a batch of
      its reads, H1 at its edge shapes (k, rows, row widths, a row longer
      than a tile, each mode) and H2 at its own (4 and 16 slots, stashes of
      0, 1 and 64 rows, 1 to 257 probes, keys in the first and last slot,
@@ -42,10 +43,10 @@ Phases, one line each:
      0.5% substitutions, through the CLI four times -- the device build
      (auto), the host build (SHOTGUN_TPU_DEVICE_BUILD=0), the host build
      with the 4-slot hash table (SHOTGUN_TPU_PROBE=hash), and the host
-     build with the host-built 16-slot table (SHOTGUN_TPU_PROBE=hash16,
-     the route of a .kdb or a -g input past the device build's window
-     above the auto crossover): the four summaries must be byte-equal;
-     each run's aligned reads/s is printed;
+     build with its 16-slot table (SHOTGUN_TPU_PROBE=hash16, the route of
+     a .kdb or a -g input past the device build's window above the auto
+     crossover), both tables assembled on the card: the four summaries
+     must be byte-equal; each run's aligned reads/s is printed;
   7. the 13 dumpalign golden cases of tests/golden through the CLI on the
      card, byte for byte, on the auto route, on the sort join, on the
      4-slot hash table and with the device build forced; on each route
@@ -64,11 +65,15 @@ Phases, one line each:
         reads/s beside the dumpalign stream's, and the bytes of mapping
         lists fetched per batch;
      b. the 32 Mbp main-path workload: -t reference, then -t align (auto:
-        the host-built 16-slot table, so H2 runs), then the .aln loaded
-        back and its read store held against the truth read by read (ids
-        in input order, every read unique, every list its genome); the
-        stages, the .kdb/.aln sizes with their write and load seconds, the
-        align reads/s and the peak device memory;
+        the .kdb's 16-slot table, assembled on the card under the default
+        budget -- stage hash_table_device -- so H2 runs), then the .aln
+        loaded back and its read store held against the truth read by
+        read (ids in input order, every read unique, every list its
+        genome); the stages, the .kdb/.aln sizes with their write and load
+        seconds, the align reads/s and the peak device memory; then the
+        .kdb's 16-slot table built both ways in this process, the host
+        builder's and the card's, bit-equal, each timed, the assembly's
+        peak device memory at most its budget term;
      c. EXTSIM at G = 512 (64 ancestors x 8 copies of 20 kbp at 1%
         mutation): the overlap matrix on the card equal to the JAX
         package's host product, both timed, and dumpref --filter-similar
@@ -134,12 +139,16 @@ Phases, one line each:
         as one row and H2 on that table against their plain versions;
      b. part a: 16 random genomes of 6.25 Mbp built on the host, the sort
         table uploaded, 1,048,576 reads as a FASTQ streamed twice on the
-        auto route (the host-built 16-slot table), 64 sampled reads against
-        ``Read.pseudo_align``; the reference saved as a .kdb and `-t
-        dumpalign -r` of it on the FASTQ in a child process, whose stdout
-        must equal the library's summary (its kdb_load, table_build and
-        stream_align stages printed); the host's RAM and the free disk
-        (P12_DISK needed) first;
+        auto route (the 16-slot table of P12_BUCKETS buckets, assembled on
+        the card with $SHOTGUN_TPU_HASH_HBM_BUDGET at P12B_BUDGET, the
+        least whole GB above its term), 64 sampled reads against
+        ``Read.pseudo_align``; the assembly run again alone, equal to the
+        library's table, its peak device memory at most the term; the
+        reference saved as a .kdb and `-t dumpalign -r` of it on the FASTQ
+        in a child process under the same budget, whose stdout must equal
+        the library's summary (its kdb_load, table_build with its nested
+        hash_table_device, and stream_align stages printed); the host's
+        RAM and the free disk (P12_DISK needed) first;
      c. part b: k = 75 at 16.8M keys, the sharded probe on a 1 x 1 mesh
         equal to the unsharded one.
      Each stage's wall, peak device memory, peak resident memory of this
@@ -256,6 +265,10 @@ P12_BATCH = 16384
 P12_MIN_KEYS = 99_000_000
 P12_BUCKETS = 1 << 25
 P12_BUDGET = 16_000_000_000
+#: phase 12b's budget: the least whole GB at which a loaded index's term
+#: (``index_table_bytes``) admits the P12_BUCKETS-bucket table; it is the
+#: default, so a 100M-key .kdb takes the card's assembly unasked
+P12B_BUDGET = 10_000_000_000
 P12_DISK = 6_000_000_000
 PALLAS = "shotgun_tpu/ops/pallas/kernels.py"
 CSRC = "shotgun_tpu_torch/ops/kernels/csrc"
@@ -503,7 +516,6 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
         STASH_POS_BASE,
         hash_probe,
         hash_probe_plain,
-        hash_table_to_device,
     )
     from shotgun_tpu_torch.tools.bench_encode import bound_ms, h1_bytes
     from shotgun_tpu_torch.tools.bench_probe import probe_case
@@ -544,9 +556,10 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
     pt = build_probe_table(strain_index.kmer_lo, strain_index.kmer_hi,
                            strain_index.set_id, strain_index.genome_counts(),
                            slots_per_bucket=4)
-    tab4 = hash_table_to_device(pt.table, pt.stash, device)
-    torch.cuda.synchronize()
     table4_s = time.perf_counter() - t0
+    # the `hash` route's table as the route makes it: assembled on the
+    # card, bit-equal to the host builder's
+    tab4, asm4 = assembled_table(strain_index, 4, device, pt, "4-slot strain panel")
     del pt
     h2_modes = []
     for case in (probe_case("16-slot", tab.table, tab.stash, codes, rng),
@@ -644,12 +657,11 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
         "H2 at %d edge cases (4 and 16 slots; stash 0/1/64 "
         "rows; n %s) and on one batch of B=%d reads (and one window more) on the "
         "device-assembled 16-slot table of phase 3 and on the strain panel's "
-        "4-slot table (host "
-        "build %.3f s). Times (launches queued behind a sleep kernel, outputs "
-        "rotated past the L2): %s" % (
+        "4-slot table (host build %.3f s; %s). Times (launches queued behind "
+        "a sleep kernel, outputs rotated past the L2): %s" % (
             n_edge, b, LPAD, K, row_d.shape[1] * 4, n_word,
             "/".join(map(str, WORD_KS)), n_h2_edge,
-            "/".join(map(str, H2_EDGE_N)), b, table4_s,
+            "/".join(map(str, H2_EDGE_N)), b, table4_s, asm4,
             "; ".join("%s %s %s %.4f ms vs plain %.4f ms, %d B, bound %.4f ms, "
                       "%.1f%% of it%s" % (
                           kernel, m["mode"], m["shape"], m["ms"], m["plain_ms"],
@@ -734,6 +746,39 @@ def check_build(dev: dict, host, what: str) -> None:
     if not np.array_equal(rows(dev["set_masks"], dev["sid"].cpu().numpy()),
                           rows(host.set_masks, host.set_id)):
         raise AssertionError(f"{what}: device set membership != host")
+
+
+def assembled_table(index, slots: int, device, host_pt, what: str) -> tuple:
+    """``index_hash_table`` of a host index on the card, timed, held bit
+    for bit (table and stash) against ``host_pt``, the host builder's
+    table of it; its peak device memory above what was allocated before
+    must not pass the budget's term (``index_table_bytes``).  Returns the
+    ``HashTableDev`` and a line of its figures."""
+    import torch
+
+    from shotgun_tpu_torch.index.device_build import index_hash_table, index_table_bytes
+    from shotgun_tpu_torch.ops.probe import HashTableDev
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ht = index_hash_table(index, slots, device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    if ht is None:
+        raise AssertionError(f"{what}: the budget refused the device assembly")
+    term = index_table_bytes(index.num_kmers, index.num_sets, slots, ht[0].shape[0])
+    if not (np.array_equal(ht[0].cpu().numpy().view(np.uint32), host_pt.table)
+            and np.array_equal(ht[1].cpu().numpy().view(np.uint32), host_pt.stash)):
+        raise AssertionError(f"{what}: the device-assembled table != the host builder's")
+    if peak > term:
+        raise AssertionError(f"{what}: assembly peak {peak} B > its budget term {term} B")
+    return HashTableDev(*ht), (
+        f"{what} {slots}-slot table {tuple(ht[0].shape)} assembled on the card in "
+        f"{secs:.3f} s, == the host builder's bit for bit (stash {ht[1].shape[0]} rows), "
+        f"peak {peak} B above the {base} B held before, budget term {term} B")
 
 
 def phase_db_build(panels, device):
@@ -995,11 +1040,15 @@ def phase_strain_files(tmp: str, fa: str, fq: str) -> dict:
     return by_route
 
 
-def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray) -> dict:
+def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray, device) -> dict:
     """Phase 8b: the 32 Mbp workload through reference and align, the
     read store loaded back and held against the truth; returns the align
     run's kernel launches."""
+    import torch
+
     from shotgun_tpu_torch.aligner import PseudoAlignment
+    from shotgun_tpu_torch.index.hashtable import build_probe_table
+    from shotgun_tpu_torch.reference import KmerReference
 
     say("phase 8b: %d B free in %s before the 32 Mbp .kdb and .aln" % (
         shutil.disk_usage(tmp).free, tmp))
@@ -1010,6 +1059,18 @@ def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray) -> dict:
         ["-t", "align", "-r", kdb, "--reads", fq, "-a", aln])
     if min(launches.values()) <= 0:
         raise AssertionError(f"32 Mbp align: a kernel never launched: {launches}")
+    if "hash_table_device" not in st or "hash_table_host" in st:
+        raise AssertionError(f"32 Mbp align: the table was not assembled on the card: {st}")
+    # the same .kdb's 16-slot table both ways: the host builder (the route
+    # before the device assembly) and the card's, bit-equal
+    index = KmerReference.load(kdb, device).index
+    t0 = time.perf_counter()
+    pt = build_probe_table(index.kmer_lo, index.kmer_hi, index.set_id,
+                           index.genome_counts(), slots_per_bucket=16)
+    host_s = time.perf_counter() - t0
+    tab, asm = assembled_table(index, 16, device, pt, "32 Mbp .kdb")
+    del pt, tab, index
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     store = PseudoAlignment.load(aln)
     load_s = time.perf_counter() - t0
@@ -1027,16 +1088,18 @@ def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray) -> dict:
         raise AssertionError(f"32 Mbp align: Statistics {stats}")
     say("phase 8b 32 Mbp align task, read store == truth read by read (%d reads): "
         "reference wall %.3f s (fasta %.3f s, host build %.3f s, .kdb write "
-        "%.3f s), .kdb %d B; align wall %.3f s (.kdb load %.3f s, host "
-        "16-slot table %.3f s, stream %.3f s = %.0f reads/s aligned, of it "
-        "the read store's host work %.3f s, .aln write %.3f s), .aln %d B, "
-        ".aln load %.3f s, %.0f B of mapping lists fetched per batch of %d, "
-        "peak device memory %d B, launches %s" % (
+        "%.3f s), .kdb %d B; align wall %.3f s (.kdb load %.3f s, table_build "
+        "%.3f s of it hash_table_device %.3f s, stream %.3f s = %.0f reads/s "
+        "aligned, of it the read store's host work %.3f s, .aln write %.3f s), "
+        ".aln %d B, .aln load %.3f s, %.0f B of mapping lists fetched per batch "
+        "of %d, peak device memory %d B, launches %s; the .kdb's 16-slot table "
+        "by the host builder %.3f s, %s" % (
             n, ref_wall, ref_st["fasta_parse"], ref_st["db_build"],
             ref_st["kdb_save"], os.path.getsize(kdb), wall, st["kdb_load"],
-            st["table_build"], st["stream_align"], n / st["stream_align"],
-            st["read_store"], st["aln_save"], os.path.getsize(aln), load_s,
-            fetched_bytes_per_batch(store, n, BATCH), BATCH, peak, launches))
+            st["table_build"], st["hash_table_device"], st["stream_align"],
+            n / st["stream_align"], st["read_store"], st["aln_save"],
+            os.path.getsize(aln), load_s, fetched_bytes_per_batch(store, n, BATCH),
+            BATCH, peak, launches, host_s, asm))
     os.remove(kdb)
     os.remove(aln)
     return launches
@@ -1765,14 +1828,20 @@ def phase_table_axis(p12a: dict) -> dict:
 
 
 def phase_100mbp_bulk(tmp: str, device) -> dict:
-    """Phase 12b: ``bulk_proof`` part a (host build, the host 16-slot
-    table, the stream twice, 64 sampled reads), the reference saved as a
+    """Phase 12b: ``bulk_proof`` part a (host build, the 16-slot table
+    assembled on the card, the stream twice, 64 sampled reads), the
+    assembly again alone against its budget term, the reference saved as a
     ``.kdb`` and ``-t dumpalign -r`` of it on the FASTQ in a CLI child,
     whose stdout must be the library's summary.  Returns {path: launches}."""
     import gc
 
     import torch
 
+    from shotgun_tpu_torch.index.device_build import (
+        HBM_BUDGET_ENV,
+        index_hash_table,
+        index_table_bytes,
+    )
     from shotgun_tpu_torch.tools import bulk_proof
 
     def log(msg):
@@ -1787,14 +1856,47 @@ def phase_100mbp_bulk(tmp: str, device) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    a = bulk_proof.part_a(tmp, device, log=log)
-    by_path = {"12b bulk_proof part a (host hash16)": read_launches()}
+    saved = os.environ.get(HBM_BUDGET_ENV)
+    os.environ[HBM_BUDGET_ENV] = str(P12B_BUDGET)
+    try:
+        a = bulk_proof.part_a(tmp, device, log=log)
+    finally:
+        os.environ.pop(HBM_BUDGET_ENV)
+        if saved is not None:
+            os.environ[HBM_BUDGET_ENV] = saved
+    lib_path = "12b bulk_proof part a (hash16 assembled on the card)"
+    by_path = {lib_path: read_launches()}
     lib_peak = torch.cuda.max_memory_allocated()
     if a["num_kmers"] < P12_MIN_KEYS or a["table"]["method"] != "hash16":
         raise AssertionError(f"12b: {a['num_kmers']} k-mers, route {a['table']['method']}")
-    if min(by_path["12b bulk_proof part a (host hash16)"].values()) <= 0:
+    if a["table"]["shape"][0] != P12_BUCKETS:
+        raise AssertionError(f"12b: table of {a['table']['shape']} buckets")
+    if min(by_path[lib_path].values()) <= 0:
         raise AssertionError(f"12b: launches {by_path}")
     lib_wall = time.perf_counter() - t_phase
+    # the least whole GB at which the loaded-index term admits the table
+    term = index_table_bytes(a["num_kmers"], a["num_sets"], 16, P12_BUCKETS)
+    if not term <= P12B_BUDGET < term + 1_000_000_000:
+        raise AssertionError(f"12b: P12B_BUDGET {P12B_BUDGET} B is not the least whole "
+                             f"GB above the term {term} B")
+    # the assembly alone: its peak against that term, and the library's
+    # table again, bit for bit
+    index = a["ref"].index
+    lib_tab = a["ref"].device_probe_tables(device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = index_hash_table(index, 16, device)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    asm_peak = torch.cuda.max_memory_allocated() - base
+    if again is None or not (torch.equal(again[0], lib_tab.table)
+                             and torch.equal(again[1], lib_tab.stash)):
+        raise AssertionError("12b: a second assembly != the library's table")
+    if asm_peak > term:
+        raise AssertionError(f"12b: assembly peak {asm_peak} B > its budget term {term} B")
+    del again, lib_tab, index
     kdb = os.path.join(tmp, "bulk.kdb")
     t0 = time.perf_counter()
     a["ref"].save(kdb)
@@ -1808,35 +1910,41 @@ def phase_100mbp_bulk(tmp: str, device) -> dict:
     proc, child_rss = run_watching_rss(
         [sys.executable, "-c", CLI_CHILD, "-t", "dumpalign", "-r", kdb, "--reads",
          a["fastq"], "--profile"], 900, cwd=HERE,
-        env=dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cuda"))
+        env=dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cuda",
+                 **{HBM_BUDGET_ENV: str(P12B_BUDGET)}))
     cli_wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"12b CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
     if proc.stdout != want:
         raise AssertionError("12b: the CLI's dumpalign -r stdout != the library summary")
     stages = profile_stages(proc.stderr)
+    if "hash_table_device" not in stages or "hash_table_host" in stages:
+        raise AssertionError(f"12b CLI: the table was not assembled on the card: {stages}")
     by_path["12b CLI dumpalign -r .kdb"] = cli = child_launches(proc.stderr)
     if cli["encode_window"] <= 0 or cli["hash_probe"] <= 0:
         raise AssertionError(f"12b CLI: launches {cli}")
     os.remove(kdb)
     os.remove(a["fastq"])
     n = a["reads"]
-    say("phase 12b 100 Mbp host build (%.3f s): %d distinct 31-mers, %d sets; library: "
-        "host build %.3f s, sort table prep + upload %.3f s (%d B), FASTQ %.3f s (%d B), "
-        "host 16-slot table %.3f s (%d B), stream warm %.3f s, timed %.3f s = %.0f reads/s, "
-        "%d/%d sampled reads == Read.pseudo_align (%.3f s), wall %.3f s, peak device "
-        "memory %d B, launches %s; .kdb %d B written in %.3f s; CLI dumpalign -r .kdb "
-        "--reads (a child): stdout == the library summary, wall %.3f s, kdb_load %.3f s, "
-        "table_build %.3f s, stream_align %.3f s = %.0f reads/s, launches %s, peak RSS %s "
-        "(sampled from outside every 0.1 s); host peak RSS %d B; %s" % (
-            time.perf_counter() - t_phase, a["num_kmers"], a["num_sets"], a["host_build_s"],
-            a["sort_table"]["seconds"], a["sort_table"]["bytes"], a["fastq_s"],
-            a["fastq_bytes"], a["table"]["seconds"], a["table"]["bytes"],
+    say("phase 12b 100 Mbp host build (%.3f s): %d distinct 31-mers, %d sets; library "
+        "(budget %d B): host build %.3f s, sort table prep + upload %.3f s (%d B), FASTQ "
+        "%.3f s (%d B), 16-slot table_build (assembled on the card) %.3f s (%d B), stream "
+        "warm %.3f s, timed %.3f s = %.0f reads/s, %d/%d sampled reads == "
+        "Read.pseudo_align (%.3f s), wall %.3f s, peak device memory %d B, launches %s; "
+        "the assembly again alone: %.3f s, == the library's table, peak %d B above the "
+        "%d B held before, budget term %d B; .kdb %d B written in %.3f s; CLI dumpalign "
+        "-r .kdb --reads (a child, same budget): stdout == the library summary, wall "
+        "%.3f s, kdb_load %.3f s, table_build %.3f s of it hash_table_device %.3f s, "
+        "stream_align %.3f s = %.0f reads/s, launches %s, peak RSS %s (sampled from "
+        "outside every 0.1 s); host peak RSS %d B; %s" % (
+            time.perf_counter() - t_phase, a["num_kmers"], a["num_sets"], P12B_BUDGET,
+            a["host_build_s"], a["sort_table"]["seconds"], a["sort_table"]["bytes"],
+            a["fastq_s"], a["fastq_bytes"], a["table"]["seconds"], a["table"]["bytes"],
             a["stream_warm_s"], a["stream_timed_s"], n / a["stream_timed_s"],
             a["sampled"] - a["mismatches"], a["sampled"], a["sample_s"], lib_wall, lib_peak,
-            by_path["12b bulk_proof part a (host hash16)"], kdb_bytes, save_s, cli_wall,
-            stages["kdb_load"], stages["table_build"], stages["stream_align"],
-            n / stages["stream_align"], cli,
+            by_path[lib_path], again_s, asm_peak, base, term, kdb_bytes, save_s, cli_wall,
+            stages["kdb_load"], stages["table_build"], stages["hash_table_device"],
+            stages["stream_align"], n / stages["stream_align"], cli,
             "not measured" if child_rss is None else f"{child_rss} B", peak_rss(),
             host_memory()))
     return by_path
@@ -2064,7 +2172,7 @@ def main() -> int:
         # 8. the rest of the CLI at size
         by_path.update(phase_strain_files(tmp, sfa, sfq))
         torch.cuda.empty_cache()
-        by_path["32 Mbp align"] = phase_main_files(tmp, fa, fq, gi)
+        by_path["32 Mbp align"] = phase_main_files(tmp, fa, fq, gi, device)
         torch.cuda.empty_cache()
         phase_extsim(tmp, rng, device)
         torch.cuda.empty_cache()

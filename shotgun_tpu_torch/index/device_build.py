@@ -5,7 +5,10 @@ Builds what ``dumpalign`` needs of the index -- the key-sorted table of
 distinct k-mers with their genome-set ids and genome counts, and the
 genome-set member masks -- on the device, and the 16-slot hash table the
 bucket probe (kernel H2) reads.  Only the multi-record sets' (set,
-record) pairs, at most ``PMAX``, come back to the host.
+record) pairs, at most ``PMAX``, come back to the host.  The same table
+assembly (``_place``) makes the 4- and 16-slot tables of a host-built or
+loaded index on the device (``index_hash_table``), bit for bit the host
+builder's.
 
   1. host: 2-bit pack of the genome codes and the list of N runs
      (``io.native.pack2``, numpy without the native library);
@@ -38,14 +41,15 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from shotgun_tpu_torch.io import native as _native
-from shotgun_tpu_torch.index.hashtable import STASH_CAP
+from shotgun_tpu_torch.index.hashtable import STASH_CAP, _TARGET_LAMBDA, _next_pow2
 from shotgun_tpu_torch.ops.encode import M32, encode_window, mix32, pack_codes_2bit, split_key
+from shotgun_tpu_torch.ops.probe_sort import host_key_words
 
 #: record-count cap: a (set, record) pair packs as set * R_CAP + record
 R_CAP = 4096
@@ -56,11 +60,15 @@ PMAX = 1 << 17
 #: N-run cap of the JAX build's upload (one of its slots holds its pad)
 NRUNS_CAP = 1 << 16
 
-#: 16-slot hash table sizing (the host builder's wide-bucket layout)
+#: a device build's hash table: the host builder's 16-slot layout
 HASH_SLOTS = 16
-HASH_LAMBDA = 4.0
+HASH_LAMBDA = _TARGET_LAMBDA[HASH_SLOTS]
 HBM_BUDGET_ENV = "SHOTGUN_TPU_HASH_HBM_BUDGET"
 HBM_BUDGET_DEFAULT = 10_000_000_000
+#: rows a step of the table assembly's chunked passes, and the most bytes
+#: of temporaries such a step holds a row (``index_table_bytes``)
+_CHUNK = 1 << 20
+_CHUNK_ROW_BYTES = 128
 
 _I64 = torch.int64
 
@@ -237,37 +245,87 @@ def device_build_tables(genomes, k: int, device: torch.device) -> Optional[dict]
                 prep_s=prep_s)
 
 
-def _i32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> int32 tensors of the same bits."""
-    return (((x + (1 << 31)) & M32) - (1 << 31)).to(torch.int32)
+class _Rows(NamedTuple):
+    """Key-sorted rows to place, read on the device a chunk at a time:
+    ``keys(a, b)`` int64 [b - a] (``hi << 32 | lo``) and ``payload(a, b)``
+    (set ids, genome counts), int32 [b - a] each."""
+
+    n: int
+    keys: Callable[[int, int], torch.Tensor]
+    payload: Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _hash_table_from_rows(keys, sid, gc, nb: int):
-    """The 16-slot bucket table (``index/hashtable.py`` layout, as int32
-    bits) and its overflow stash from distinct key-sorted rows.
+def _chunks(n: int):
+    for a in range(0, n, _CHUNK):
+        yield a, min(a + _CHUNK, n)
 
-    A stable sort by bucket keeps key order inside each bucket, as the
-    host builder's stable argsort does, so the same rows give the same
-    table bit for bit."""
-    u = keys.numel()
-    dev = keys.device
-    lo, hi = split_key(keys)
-    bucket = mix32(lo, hi) & (nb - 1)
+
+def _place(rows: _Rows, nb: int, slots: int, device: torch.device
+           ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(table int32 [nb, slots, 4], stash int32 [<= STASH_CAP, 4]) of
+    ``rows`` in the ``index/hashtable.py`` layout (uint32 bits as int32),
+    or None when more than ``STASH_CAP`` rows overflow their bucket.
+
+    A row's slot is its rank among its bucket's rows in key order, which
+    is what the host builder's stable argsort gives, so the same rows give
+    the same table and stash bit for bit.  Three passes, each over chunks
+    of ``_CHUNK`` rows:
+      1. each row's bucket (int32);
+      2. one stable sort of the buckets; each row's rank in its bucket
+         (sorted position less the bucket's first, by ``searchsorted``),
+         clipped at ``slots`` into uint8 and scattered back to row order;
+         the rows past their bucket's slots are counted;
+      3. the table (filled only now: the sort's buffers are gone), each
+         row written to its slot; the overflowing rows form the stash in
+         (bucket, row) order, as the host builder's."""
+    u = rows.n
+    bucket = torch.empty(u, dtype=torch.int32, device=device)
+    for a, b in _chunks(u):
+        lo, hi = split_key(rows.keys(a, b))
+        bucket[a:b] = mix32(lo, hi) & (nb - 1)
     bs, order = torch.sort(bucket, stable=True)
-    new = torch.ones(u, dtype=torch.bool, device=dev)
-    new[1:] = bs[1:] != bs[:-1]
-    # rank in the bucket: position minus the bucket's first position (a
-    # prefix count and a gather; torch.cummax on CUDA is 50-250x slower
-    # than a prefix sum on one long row)
-    first = new.nonzero().squeeze(1)
-    rank = torch.arange(u, device=dev) - first[torch.cumsum(new, 0) - 1]
-    rows = _i32_bits(torch.stack(
-        [lo, hi, sid.to(_I64), gc.to(_I64)], dim=1)[order])
-    placed = rank < HASH_SLOTS
-    table = torch.zeros((nb * HASH_SLOTS, 4), dtype=torch.int32, device=dev)
+    rank = torch.empty(u, dtype=torch.uint8, device=device)
+    over = torch.zeros((), dtype=_I64, device=device)
+    for a, b in _chunks(u):
+        r = (torch.arange(a, b, dtype=torch.int32, device=device)
+             - torch.searchsorted(bs, bs[a:b], out_int32=True))
+        over += (r >= slots).sum()
+        rank[order[a:b]] = r.clamp_(max=slots).to(torch.uint8)
+    del bs, order
+    n_over = int(over)
+    if n_over > STASH_CAP:
+        return None
+    table = torch.zeros((nb * slots, 4), dtype=torch.int32, device=device)
     table[:, 2] = -1  # EMPTY
-    table[(bs * HASH_SLOTS + rank)[placed]] = rows[placed]
-    return table.view(nb, HASH_SLOTS, 4), rows[~placed]
+    spill_b, spill_rows = [], []
+    for a, b in _chunks(u):
+        sid, gc = rows.payload(a, b)
+        row = torch.cat([rows.keys(a, b).view(torch.int32).view(-1, 2),
+                         sid[:, None], gc[:, None]], dim=1)
+        r = rank[a:b]
+        pos = bucket[a:b].to(_I64) * slots + r
+        if n_over:
+            keep = r < slots
+            spill_b.append(bucket[a:b][~keep])
+            spill_rows.append(row[~keep])
+            pos, row = pos[keep], row[keep]
+        table[pos] = row
+    stash = torch.zeros((0, 4), dtype=torch.int32, device=device)
+    if n_over:
+        _, by_bucket = torch.sort(torch.cat(spill_b), stable=True)
+        stash = torch.cat(spill_rows)[by_bucket]
+    return table.view(nb, slots, 4), stash
+
+
+def _budget() -> int:
+    """``$SHOTGUN_TPU_HASH_HBM_BUDGET`` in bytes (``HBM_BUDGET_DEFAULT``
+    unset); a value that is not an integer raises, as in the JAX package."""
+    return int(os.environ.get(HBM_BUDGET_ENV, HBM_BUDGET_DEFAULT))
+
+
+def _first_buckets(u: int, slots: int) -> int:
+    """The host builder's first bucket count (``build_probe_table``)."""
+    return _next_pow2(max(int(u / _TARGET_LAMBDA[slots]), 1))
 
 
 def device_hash_table(built: dict
@@ -282,16 +340,80 @@ def device_hash_table(built: dict
     The workspace term counts one row per genome window, as the JAX
     check counts its table's rows (one per window, rounded up to its
     shape bucket), not one per distinct key."""
-    u = built["num_kmers"]
-    nb = 1 << max(int(max(u / HASH_LAMBDA, 1)) - 1, 1).bit_length()
-    budget = int(os.environ.get(HBM_BUDGET_ENV, HBM_BUDGET_DEFAULT))
+    keys, sid, gc = built["keys"], built["sid"], built["gc"]
+    rows = _Rows(built["num_kmers"], lambda a, b: keys[a:b],
+                 lambda a, b: (sid[a:b], gc[a:b]))
+    nb = _first_buckets(rows.n, HASH_SLOTS)
+    budget = _budget()
     for _ in range(3):
         # re-checked on every doubling: table + the build's workspace
         if nb * HASH_SLOTS * 16 + 8 * built["num_windows"] * 4 > budget:
             return None
-        table, stash = _hash_table_from_rows(
-            built["keys"], built["sid"], built["gc"], nb)
-        if stash.shape[0] <= STASH_CAP:
-            return table, stash
+        placed = _place(rows, nb, HASH_SLOTS, keys.device)
+        if placed is not None:
+            return placed
+        nb *= 2
+    return None
+
+
+def index_table_bytes(num_kmers: int, num_sets: int, slots: int, nb: int) -> int:
+    """The device bytes ``index_hash_table`` holds at its peak for a table
+    of ``nb`` buckets, counted from ``_place``: pass 3's table (16 B a
+    slot) beside the buckets and ranks (5 B a row), the set sizes (4 B a
+    set) and one chunk's temporaries, at most ``_CHUNK_ROW_BYTES`` a row:
+    the chunk's upload (8 B of keys and 4 of set ids), its genome counts
+    (4 B) and at most 112 B of int64 words, masks, positions and int32 rows
+    in flight.  Pass 2 holds less: its sort, 36 B a row (the buckets,
+    ``torch.sort``'s values and indices, its int64 iota and CUB's double
+    buffers of both), stays below the table, which the host builder's
+    sizing makes at least 64 B a row (16 slots a bucket, at most 4 keys a
+    bucket; 4 slots, at most 1/4).  The index's columns stay on the
+    host."""
+    return nb * slots * 16 + 5 * num_kmers + 4 * num_sets + _CHUNK * _CHUNK_ROW_BYTES
+
+
+def index_table_admitted(index, slots: int) -> bool:
+    """Whether ``$SHOTGUN_TPU_HASH_HBM_BUDGET`` admits the table of
+    ``index`` at the host builder's first bucket count."""
+    u = index.num_kmers
+    return index_table_bytes(u, index.num_sets, slots, _first_buckets(u, slots)) <= _budget()
+
+
+def index_hash_table(index, slots: int, device: torch.device
+                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(table int32 [nb, slots, 4], stash int32 [<= 64, 4]) on ``device``
+    of a host ``KmerIndex`` at k <= 31 (built, loaded from a ``.kdb`` or
+    EXTSIM-filtered), bit for bit the tables of ``build_probe_table(...,
+    slots_per_bucket=slots)`` for ``slots`` in {4, 16}: the same first
+    bucket count, doubled while more than ``STASH_CAP`` rows overflow, and
+    every row placed, genome count 0 included.
+
+    Uploaded a chunk at a time: the index's own key column
+    (``ops.probe_sort.host_key_words``: an int64 view of ``kmer_words``,
+    no host pass), its set ids, and its set sizes once, from which the
+    genome counts are gathered on the device.  Keys go up twice (for the
+    buckets, then for the rows), so nothing of the index stays on the
+    device.
+
+    None when ``index_table_bytes`` passes ``$SHOTGUN_TPU_HASH_HBM_BUDGET``
+    (10 GB by default), checked at the first bucket count and on every
+    doubling; the caller then builds the table on the host.  A device
+    error raises."""
+    keys = host_key_words(index.kmer_words, index.k)[0]
+    sid = np.ascontiguousarray(index.set_id, dtype=np.int32)
+    sizes = torch.from_numpy(np.ascontiguousarray(index.set_sizes, dtype=np.int32)).to(device)
+
+    def payload(a: int, b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        s = torch.from_numpy(sid[a:b]).to(device)
+        return s, sizes.index_select(0, s)
+
+    rows = _Rows(index.num_kmers, lambda a, b: torch.from_numpy(keys[a:b]).to(device),
+                 payload)
+    nb = _first_buckets(rows.n, slots)
+    budget = _budget()
+    while index_table_bytes(rows.n, index.num_sets, slots, nb) <= budget:
+        placed = _place(rows, nb, slots, device)
+        if placed is not None:
+            return placed
         nb *= 2
     return None

@@ -16,6 +16,7 @@ the probe reads any one of them.
 
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -50,13 +51,27 @@ def key_words_from_u32(words_u32: np.ndarray, k: int) -> Tuple[np.ndarray, ...]:
     return tuple(out)
 
 
+def host_key_words(words_u32: np.ndarray, k: int) -> Tuple[np.ndarray, ...]:
+    """``key_words_from_u32`` without a host pass where one is not needed:
+    at 1 <= k <= 31 a C-contiguous [N, 2] uint32 (lo, hi) array on a
+    little-endian host already is the int64 key ``hi << 32 | lo``, and its
+    int64 view is returned (no copy).  Other layouts and k are widened."""
+    if (1 <= k <= 31 and words_u32.dtype == np.uint32 and words_u32.ndim == 2
+            and words_u32.shape[1] == 2 and words_u32.flags.c_contiguous
+            and sys.byteorder == "little"):
+        return (words_u32.view(np.int64).reshape(-1),)
+    return key_words_from_u32(words_u32, k)
+
+
 def sorted_table_host(index) -> Tuple[Tuple[np.ndarray, ...], np.ndarray, np.ndarray]:
     """(words, sid int32, gc int32) of a ``KmerIndex`` of any k >= 1, whose
     rows are in key order (counterpart of the JAX package's
     ``sorted_table_host`` and ``sorted_table_host_words``): one word at
-    k <= 31."""
-    return (key_words_from_u32(index.kmer_words, index.k),
-            index.set_id.astype(np.int32), index.genome_counts().astype(np.int32))
+    k <= 31, a view of the index's ``kmer_words`` where
+    ``host_key_words`` allows."""
+    return (host_key_words(index.kmer_words, index.k),
+            index.set_id.astype(np.int32, copy=False),
+            index.genome_counts().astype(np.int32, copy=False))
 
 
 def sorted_table(words: Sequence, sid, gc, device: torch.device) -> SortedTableDev:

@@ -34,13 +34,19 @@ from shotgun_tpu_torch.index.build import (
 )
 from shotgun_tpu_torch.io.packing import GenomeArrays, pack_genomes
 from shotgun_tpu_torch.io.records import SeqRecord
-from shotgun_tpu_torch.index.device_build import device_build_tables, device_hash_table
+from shotgun_tpu_torch.index.device_build import (
+    device_build_tables,
+    device_hash_table,
+    index_hash_table,
+    index_table_admitted,
+)
 from shotgun_tpu_torch.index.extsim import apply_similarity_filter
 from shotgun_tpu_torch.index.hashtable import ProbeTable, build_probe_table
 from shotgun_tpu_torch.models.pipeline import DeviceTable
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
 from shotgun_tpu_torch.ops.probe_sort import sorted_table, sorted_table_host
 from shotgun_tpu_torch.utils.device import resolve_device
+from shotgun_tpu_torch.utils.profiling import phase
 
 PROBE_ENV = "SHOTGUN_TPU_PROBE"
 
@@ -560,13 +566,25 @@ class KmerReference:
 
     def device_probe_tables(self, device: torch.device, method: Optional[str] = None
                             ) -> DeviceTable:
-        """The probe table on ``device``, made once.
+        """The probe table on ``device``, made once.  Every hash table is
+        assembled on a device when ``$SHOTGUN_TPU_HASH_HBM_BUDGET`` admits
+        it (``index/device_build.py``), and the budget's refusal routes
+        as in the JAX package:
 
-        A device-built reference assembles its 16-slot table on the
-        device from the build products.  When that fails deterministically
-        (over the memory budget, or a stash that keeps overflowing) the
-        failure is kept: 'auto' takes the sort join from then on, and an
-        explicit 'hash16' raises.  Device errors raise."""
+        - a device-built reference assembles its 16-slot table from the
+          build products.  When that fails deterministically (over the
+          budget, or a stash that keeps overflowing) the failure is kept:
+          'auto' takes the sort join from then on, and an explicit
+          'hash16' raises;
+        - a host index (built, loaded or EXTSIM-filtered) assembles its
+          4- or 16-slot table on ``device`` (``index_hash_table``), the
+          host builder's bit for bit; over the budget it takes the host
+          builder (``probe_table``) and uploads that table.
+
+        The CLI's ``--profile`` names a host index's route inside
+        ``table_build``: stage ``hash_table_device`` or
+        ``hash_table_host``.  Device errors raise; nothing falls back to
+        the host on one."""
         device = torch.device(device)
         requested = method or os.environ.get(PROBE_ENV, "auto")
         method = self.probe_method(requested)
@@ -590,10 +608,23 @@ class KmerReference:
             if method == "sort":
                 tab = sorted_table(*self.sort_columns(), device)
             else:
-                pt = self.probe_table(method)
-                tab = hash_table_to_device(pt.table, pt.stash, device)
+                tab = self._index_hash_table(method, device)
             self._device_tables[key] = tab
         return self._device_tables[key]
+
+    def _index_hash_table(self, method: str, device: torch.device) -> HashTableDev:
+        """The host index's hash table on ``device``: assembled there when
+        the budget admits it, else the host builder's, uploaded."""
+        slots = 16 if method == "hash16" else 4
+        ht = None
+        if index_table_admitted(self.index, slots):
+            with phase("hash_table_device"):
+                ht = index_hash_table(self.index, slots, device)
+        if ht is not None:
+            return HashTableDev(*ht)
+        with phase("hash_table_host"):
+            pt = self.probe_table(method)
+            return hash_table_to_device(pt.table, pt.stash, device)
 
     def sort_columns(self) -> tuple:
         """(words, sid, gc): the key-sorted table's columns where they live,
