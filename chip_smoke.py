@@ -4,18 +4,22 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each:
-  1. device: the card's name and its power limit (nvidia-smi);
+  1. device: the card's name and its power limit (nvidia-smi), and the
+     route and size values in effect on it (``routes.device_routes``:
+     budget, device-build window, auto crossover, auto batch) with where
+     each comes from;
   2. build: the CUDA kernels from shotgun_tpu_torch/ops/kernels/csrc with
      nvcc, and the port's native host library (g++, build/host/), at
      once, timed; the loaded native library must be the port's;
   3. database build on the device against the host build, both timed, on
-     the phase-5 genomes (32 Mbp) and the phase-6 strain panel: equal
+     the phase-5 genomes (48 Mbp) and the phase-6 strain panel: equal
      distinct keys, genome counts and set membership per key; then the
-     device assembly of the 32 Mbp 16-slot hash table, timed;
+     device assembly of the 48 Mbp 16-slot hash table, timed;
   4. kernels against their plain PyTorch versions on the card, at the main
-     path's shapes (B = 32768 reads, row stride 160, k = 31, the
+     path's shapes (B = the card's auto batch of its N_READS reads, 65,536;
+     row stride 160, k = 31, the
      device-assembled 16-slot table of phase 3 with a stash of planted
-     entries; and H1 on the packed 32 Mbp genome as one row, as the device
+     entries; and H1 on the packed 48 Mbp genome as one row, as the device
      build runs it), H2 also on the strain panel's 4-slot table (the
      `hash` route's, assembled on the card from phase 3's host index and
      held bit for bit against the host builder's) with a batch of
@@ -29,9 +33,10 @@ Phases, one line each:
      equality, and the time of each (the composition at k = 75) beside its
      plain version, its bytes and its byte bound at 3.35 TB/s;
   5. the main path: `-t dumpalign -g -k 31 --reads` through the port's CLI,
-     in process, on 32 random 1 Mbp genomes (about 32M distinct 31-mers:
-     the database builds on the device, and the auto probe picks the
-     16-slot hash table, ~2.1 GB on the card, assembled there) and 524,288
+     in process, on 48 random 1 Mbp genomes (about 48M distinct 31-mers,
+     above the card's auto crossover: the database builds on the device,
+     and the auto probe picks the 16-slot hash table, ~4.3 GB on the card,
+     assembled there) and 524,288
      error-free 150 bp reads sampled from them; the route (stage
      db_build_device) and the summary are held against the known truth,
      and every kernel must have launched.  The genomes share no k-mer and
@@ -64,7 +69,7 @@ Phases, one line each:
         -a of the sort .aln equal to dumpalign -r --reads; each align's
         reads/s beside the dumpalign stream's, and the bytes of mapping
         lists fetched per batch;
-     b. the 32 Mbp main-path workload: -t reference, then -t align (auto:
+     b. the 48 Mbp main-path workload: -t reference, then -t align (auto:
         the .kdb's 16-slot table, assembled on the card under the default
         budget -- stage hash_table_device -- so H2 runs), then the .aln
         loaded back and its read store held against the truth read by
@@ -99,12 +104,12 @@ Phases, one line each:
      the sizes of phases 5 and 6, several shards on cuda:0:
      a. data parallel: ``align_packed_reads`` of phase 5's 524,288 reads
         (parsed from its FASTQ) over ``make_mesh([cuda:0] * 4)`` against a
-        device build of its 32 Mbp genomes (the 16-slot table, H2), with
+        device build of its 48 Mbp genomes (the 16-slot table, H2), with
         phase 5's MKQ gate: the summary equal to phase 5's stdout;
      b. the same on the strain panel over 8 shards (the sort join), equal to
         phase 6's stdout;
      c. DP x TP: a 2 x 2 mesh with the sort table split in 2 key ranges, on
-        the strain panel and on the 32 Mbp device build (31,999,040 rows) on
+        the strain panel and on the 48 Mbp device build (47,998,560 rows) on
         the default route, where one device takes the 16-slot table and the
         2-D mesh the split sort table: each summary equal to phase 6's or
         phase 5's stdout, H2 not launched; one batch's ms (CUDA events
@@ -129,26 +134,31 @@ Phases, one line each:
  12. 100 Mbp, the JAX repo's proven scale (``tools/devbuild_proof.py`` and
      ``tools/bulk_proof.py`` at their defaults):
      a. 64 random genomes of 1.5625 Mbp built on the card (at least
-        P12_MIN_KEYS distinct 31-mers; the auto table under the default
-        budget printed), 262,144 reads at B = P12_BATCH, the cross-check
-        against the host build; the same genomes built again with
-        $SHOTGUN_TPU_HASH_HBM_BUDGET at P12_BUDGET, so that the 16-slot
-        table of P12_BUCKETS buckets exists: its summary equal to the
-        first's, H2 launched; each route's reads/s, device ms a batch and
-        idle share (``tools/profile_align.py``'s measures); H1 on the genome
-        as one row and H2 on that table against their plain versions;
+        P12_MIN_KEYS distinct 31-mers), 262,144 reads at B = P12_BATCH,
+        the cross-check against the host build: at the card's default
+        budget ``auto`` takes the 16-slot table of P12_BUCKETS buckets
+        (H2); the same genomes built again on the sort join
+        (SHOTGUN_TPU_PROBE=sort), its summary equal to the first's; each
+        route's reads/s, device ms a batch and idle share
+        (``tools/profile_align.py``'s measures), and its peak device
+        memory, allocated and reserved, against the budget; H1 on the
+        genome as one row and H2 on that table against their plain
+        versions; then the CLI's `-t dumpalign -g` of the genomes and
+        reads in a child process with --profile: stage db_build_device
+        (above the JAX package's 64 Mbp ceiling), H2 launched (the
+        16-slot table), stdout equal to the library's summary;
      b. part a: 16 random genomes of 6.25 Mbp built on the host, the sort
         table uploaded, 1,048,576 reads as a FASTQ streamed twice on the
         auto route (the 16-slot table of P12_BUCKETS buckets, assembled on
-        the card with $SHOTGUN_TPU_HASH_HBM_BUDGET at P12B_BUDGET, the
-        least whole GB above its term), 64 sampled reads against
-        ``Read.pseudo_align``; the assembly run again alone, equal to the
-        library's table, its peak device memory at most the term; the
-        reference saved as a .kdb and `-t dumpalign -r` of it on the FASTQ
-        in a child process under the same budget, whose stdout must equal
+        the card under the default budget, which its term must fit), 64
+        sampled reads against ``Read.pseudo_align``; the assembly run
+        again alone, equal to the library's table, its peak device memory
+        at most the term; the reference saved as a .kdb and `-t dumpalign
+        -r` of it on the FASTQ in a child process, whose stdout must equal
         the library's summary (its kdb_load, table_build with its nested
-        hash_table_device, and stream_align stages printed); the host's
-        RAM and the free disk (P12_DISK needed) first;
+        hash_table_device, and stream_align stages printed, and its host
+        build beside 12a's CLI db_build_device); the host's RAM and the
+        free disk (P12_DISK needed) first;
      c. part b: k = 75 at 16.8M keys, the sharded probe on a 1 x 1 mesh
         equal to the unsharded one.
      Each stage's wall, peak device memory, peak resident memory of this
@@ -224,7 +234,7 @@ DUMPREF_CASES = ["dumpref", "dumpref-sim75", "dumpref-sim0"]
 K = 31
 BATCH = 32768
 LPAD = 160
-N_GENOMES = 32
+N_GENOMES = 48
 GENOME_LEN = 1_000_000
 N_READS = 524_288
 #: golden routes: (name, environment)
@@ -258,24 +268,43 @@ RUNLOG = os.path.join(GOLDEN, "runlog")
 RUNLOG_WORD_CASES = ["rl-small-k75-m1p1", "rl-small-k75-m5p5",
                      "rl-mid-k150-flags", "rl-mid-k150-mg0"]
 #: phase 12: the proofs' batch; the least distinct 31-mers of its 100 Mbp
-#: builds; the buckets of their 16-slot table (8.6 GB) and the device budget
-#: of 12a's second route, which holds it; the free bytes 12b needs for its
-#: FASTQ (~0.33 GB) and .kdb (~4 GB)
+#: builds; the buckets of their 16-slot table (8.6 GB); the free bytes 12b
+#: needs for its FASTQ (~0.33 GB) and .kdb (~4 GB); the device builds of
+#: 12a's devbuild_proof run (cold, warm and its cross-check's)
 P12_BATCH = 16384
 P12_MIN_KEYS = 99_000_000
 P12_BUCKETS = 1 << 25
-P12_BUDGET = 16_000_000_000
-#: phase 12b's budget: the least whole GB at which a loaded index's term
-#: (``index_table_bytes``) admits the P12_BUCKETS-bucket table; it is the
-#: default, so a 100M-key .kdb takes the card's assembly unasked
-P12B_BUDGET = 10_000_000_000
 P12_DISK = 6_000_000_000
+P12_DEVICE_BUILDS = 3
 PALLAS = "shotgun_tpu/ops/pallas/kernels.py"
 CSRC = "shotgun_tpu_torch/ops/kernels/csrc"
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def routes_line(device) -> str:
+    """The route and size values in effect on ``device`` (no route variable
+    is set here), and where each comes from."""
+    import torch
+
+    from shotgun_tpu_torch import routes
+
+    r = routes.device_routes(device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    procs = routes.procs_per_card(device.index)
+    return ("phase 1 routes on the card (shotgun_tpu_torch/routes.py; PERF.md, 'Route and "
+            "size constants'): hash budget %d B = total memory %d B // (%d reserved a byte "
+            "allocated x %d process(es) on the card) - %d B a base of rows x the window's "
+            "max - %d B of stream (routes.card_routes); device-build window %d-%d bases "
+            "(CARD_DEVICE_BUILD_MIN/_MAX); auto crossover above %d distinct k-mers "
+            "(CARD_AUTO_HASH_MIN_KEYS); auto batch %d for every input (CARD_BATCH); off a "
+            "card, the JAX package's %s" % (
+                r.hash_budget, total, routes.RESERVED_PER_ALLOCATED, procs,
+                routes.ROW_BYTES_PER_BASE, routes.STREAM_BYTES, r.device_build_min,
+                r.device_build_max, r.auto_hash_min_keys, r.auto_batch(N_READS),
+                routes.JAX_ROUTES))
 
 
 def reset_launches() -> None:
@@ -967,6 +996,14 @@ def sha256(path: str) -> str:
     return h.hexdigest()
 
 
+def auto_batch(n_reads: int, device) -> int:
+    """The batch of ``n_reads`` reads on ``device`` (the CLI's, and the
+    library's, at ``--batch-size`` 0)."""
+    from shotgun_tpu_torch.routes import device_routes
+
+    return device_routes(device).auto_batch(n_reads)
+
+
 def fetched_bytes_per_batch(aln, n_reads: int, batch: int) -> float:
     """Bytes of the read store copied to the host per batch: a mapping-type
     byte and a 4-byte list length per read, 8 bytes per list entry."""
@@ -975,9 +1012,10 @@ def fetched_bytes_per_batch(aln, n_reads: int, batch: int) -> float:
     return (5 * n_reads + 8 * entries) / n_batches
 
 
-def phase_strain_files(tmp: str, fa: str, fq: str) -> dict:
+def phase_strain_files(tmp: str, fa: str, fq: str, device) -> dict:
     """Phase 8a: reference, dumpref, align and dumpalign -a on the strain
-    panel; returns each align route's kernel launches."""
+    panel (the CLI's children on ``device``); returns each align route's
+    kernel launches."""
     from shotgun_tpu_torch.aligner import PseudoAlignment
 
     kdb = os.path.join(tmp, "s.kdb")
@@ -1024,7 +1062,9 @@ def phase_strain_files(tmp: str, fa: str, fq: str) -> dict:
     aln = os.path.join(tmp, "s_0.aln")
     parts.append(".aln %d B, %.0f B of mapping lists fetched per batch of %d" % (
         os.path.getsize(aln),
-        fetched_bytes_per_batch(PseudoAlignment.load(aln), N_READS, BATCH), BATCH))
+        fetched_bytes_per_batch(PseudoAlignment.load(aln), N_READS,
+                                auto_batch(N_READS, device)),
+        auto_batch(N_READS, device)))
     direct, st, _, _, _ = counted_run(["-t", "dumpalign", "-r", kdb, "--reads", fq])
     parts.append("dumpalign -r --reads (the same panel and table): stream %.3f s "
                  "= %.0f reads/s aligned" % (st["stream_align"],
@@ -1041,7 +1081,7 @@ def phase_strain_files(tmp: str, fa: str, fq: str) -> dict:
 
 
 def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray, device) -> dict:
-    """Phase 8b: the 32 Mbp workload through reference and align, the
+    """Phase 8b: the 48 Mbp workload through reference and align, the
     read store loaded back and held against the truth; returns the align
     run's kernel launches."""
     import torch
@@ -1050,7 +1090,7 @@ def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray, device) -> dict
     from shotgun_tpu_torch.index.hashtable import build_probe_table
     from shotgun_tpu_torch.reference import KmerReference
 
-    say("phase 8b: %d B free in %s before the 32 Mbp .kdb and .aln" % (
+    say("phase 8b: %d B free in %s before the 48 Mbp .kdb and .aln" % (
         shutil.disk_usage(tmp).free, tmp))
     kdb, aln = os.path.join(tmp, "m.kdb"), os.path.join(tmp, "m.aln")
     _, ref_st, _, ref_wall, _ = counted_run(
@@ -1058,9 +1098,9 @@ def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray, device) -> dict
     _, st, launches, wall, peak = counted_run(
         ["-t", "align", "-r", kdb, "--reads", fq, "-a", aln])
     if min(launches.values()) <= 0:
-        raise AssertionError(f"32 Mbp align: a kernel never launched: {launches}")
+        raise AssertionError(f"48 Mbp align: a kernel never launched: {launches}")
     if "hash_table_device" not in st or "hash_table_host" in st:
-        raise AssertionError(f"32 Mbp align: the table was not assembled on the card: {st}")
+        raise AssertionError(f"48 Mbp align: the table was not assembled on the card: {st}")
     # the same .kdb's 16-slot table both ways: the host builder (the route
     # before the device assembly) and the card's, bit-equal
     index = KmerReference.load(kdb, device).index
@@ -1068,7 +1108,7 @@ def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray, device) -> dict
     pt = build_probe_table(index.kmer_lo, index.kmer_hi, index.set_id,
                            index.genome_counts(), slots_per_bucket=16)
     host_s = time.perf_counter() - t0
-    tab, asm = assembled_table(index, 16, device, pt, "32 Mbp .kdb")
+    tab, asm = assembled_table(index, 16, device, pt, "48 Mbp .kdb")
     del pt, tab, index
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1077,16 +1117,16 @@ def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray, device) -> dict
     n = int(gi.size)
     flat = np.concatenate(store._list_flat)
     if store._read_ids != [f"read_{i}" for i in range(n)]:
-        raise AssertionError("32 Mbp align: read ids are not the input's, in order")
+        raise AssertionError("48 Mbp align: read ids are not the input's, in order")
     if set(store._mtypes) != {1} or len(store._mtypes) != n:
-        raise AssertionError("32 Mbp align: not every read is uniquely mapped")
+        raise AssertionError("48 Mbp align: not every read is uniquely mapped")
     if set(store._list_counts) != {1} or not np.array_equal(flat, gi):
-        raise AssertionError("32 Mbp align: a mapping list is not [its genome]")
+        raise AssertionError("48 Mbp align: a mapping list is not [its genome]")
     stats = store.get_summary()["Statistics"]
     if stats != {"unique_mapped_reads": n, "ambiguous_mapped_reads": 0,
                  "unmapped_reads": 0}:
-        raise AssertionError(f"32 Mbp align: Statistics {stats}")
-    say("phase 8b 32 Mbp align task, read store == truth read by read (%d reads): "
+        raise AssertionError(f"48 Mbp align: Statistics {stats}")
+    say("phase 8b 48 Mbp align task, read store == truth read by read (%d reads): "
         "reference wall %.3f s (fasta %.3f s, host build %.3f s, .kdb write "
         "%.3f s), .kdb %d B; align wall %.3f s (.kdb load %.3f s, table_build "
         "%.3f s of it hash_table_device %.3f s, stream %.3f s = %.0f reads/s "
@@ -1098,8 +1138,8 @@ def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray, device) -> dict
             ref_st["kdb_save"], os.path.getsize(kdb), wall, st["kdb_load"],
             st["table_build"], st["hash_table_device"], st["stream_align"],
             n / st["stream_align"], st["read_store"], st["aln_save"],
-            os.path.getsize(aln), load_s, fetched_bytes_per_batch(store, n, BATCH),
-            BATCH, peak, launches, host_s, asm))
+            os.path.getsize(aln), load_s, fetched_bytes_per_batch(store, n, auto_batch(n, device)),
+            auto_batch(n, device), peak, launches, host_s, asm))
     os.remove(kdb)
     os.remove(aln)
     return launches
@@ -1405,12 +1445,9 @@ def two_process_cli(argv, strain_out: str) -> tuple:
 
 def profile_stages(stderr: str) -> dict:
     """{stage: seconds} of a CLI run's ``--profile`` report on stderr."""
-    stages = {}
-    for line in stderr.split("=== profile ===", 1)[1].splitlines():
-        fields = line.split()
-        if len(fields) >= 3 and fields[2] == "ms":
-            stages[fields[0]] = float(fields[1]) / 1e3
-    return stages
+    from shotgun_tpu_torch.utils.profiling import parse_report
+
+    return parse_report(stderr)
 
 
 def child_launches(stderr: str) -> dict:
@@ -1440,7 +1477,7 @@ def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: i
             raise AssertionError(f"11 {name}: launches {launches}")
         by_path[f"11 {name}"] = launches
 
-    # 11a: 4 data shards, 32 Mbp, the device build's 16-slot table
+    # 11a: 4 data shards, 48 Mbp, the device build's 16-slot table
     t0 = time.perf_counter()
     batch = FASTAQFile(fq).container.to_read_batch()
     parse_s = time.perf_counter() - t0
@@ -1453,8 +1490,8 @@ def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: i
         raise AssertionError(f"11a: the route is {main_ref.probe_method()}, not hash16")
     out, launches, wall = mesh_run(main_ref, batch, make_mesh([device] * 4), device, MKQ)
     peak = torch.cuda.max_memory_allocated()
-    check("a: DP 4 shards, 32 Mbp hash16", out, main_out, launches, True)
-    parts.append("a. DP, 4 shards, 32 Mbp, 16-slot table (device build), MKQ %d: %d reads "
+    check("a: DP 4 shards, 48 Mbp hash16", out, main_out, launches, True)
+    parts.append("a. DP, 4 shards, 48 Mbp, 16-slot table (device build), MKQ %d: %d reads "
                  "(FASTQ parsed whole in %.3f s), align_packed_reads %.3f s = %.0f reads/s, "
                  "launches %s, peak device memory %d B (device build + table + align; phase "
                  "5: %d B); summary == phase 5's stdout" % (
@@ -1482,15 +1519,15 @@ def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: i
                      strain_ref.index.num_kmers, wall, N_READS / wall, launches, BATCH,
                      tp_ms, one_ms))
     del strain_ref
-    # the 32 Mbp device build on the default route: auto picks the 16-slot
+    # the 48 Mbp device build on the default route: auto picks the 16-slot
     # table for one device (11a), and the 2-D mesh the split sort table
     torch.cuda.reset_peak_memory_stats()
     out, launches, wall = mesh_run(main_ref, batch, mesh2, device, MKQ)
-    check("c: DP x TP 2x2, 32 Mbp, default route", out, main_out, launches, False)
+    check("c: DP x TP 2x2, 48 Mbp, default route", out, main_out, launches, False)
     tp_peak = torch.cuda.max_memory_allocated()
     rows = main_ref.index.num_kmers
     one_ms, tp_ms = tp_batch_ms(main_ref, batch, device)
-    parts.append("c. DP x TP 2 x 2, 32 Mbp on the default route (auto: %s for one device, "
+    parts.append("c. DP x TP 2 x 2, 48 Mbp on the default route (auto: %s for one device, "
                  "the sort table of %d distinct 31-mers in 2 key ranges on the mesh): %.3f s = %.0f "
                  "reads/s, launches %s, peak %d B (the 16-slot table of 11a still held); a "
                  "batch of %d reads %.3f ms against %.3f ms on one device (sort join); "
@@ -1577,87 +1614,106 @@ def run_watching_rss(cmd: list, timeout: float, **kw) -> tuple:
 
 
 def phase_100mbp_devbuild(tmp: str, device) -> tuple:
-    """Phase 12a: ``devbuild_proof`` at its defaults (the sort join under
-    the default budget), the same genomes built again with the budget at
-    P12_BUDGET (the 2^25-bucket 16-slot table, H2), equal summaries; each
-    route's profile; H1 on the genome row and H2 on that table against
-    their plain versions.  Returns ({path: launches}, H1 mode, H2 mode,
-    the sort route's summary, table bytes and peak device memory)."""
+    """Phase 12a: ``devbuild_proof`` at its defaults (the 16-slot table at
+    the card's default budget, H2), the same genomes built again on the
+    sort join (SHOTGUN_TPU_PROBE=sort), equal summaries; each route's
+    profile and peak device memory against the budget; H1 on the genome
+    row and H2 on that table against their plain versions; the CLI's
+    ``dumpalign -g`` of the genomes and reads in a child.  Returns
+    ({path: launches}, H1 mode, H2 mode, the sort route's summary, table
+    bytes and peak device memory, and the CLI's db_build_device s)."""
     import torch
 
-    from shotgun_tpu_torch.index.device_build import HBM_BUDGET_ENV, _host_prep
+    from shotgun_tpu_torch.index.device_build import _host_prep
     from shotgun_tpu_torch.ops.encode import encode_window, encode_window_plain, pack_codes_2bit
     from shotgun_tpu_torch.ops.probe import hash_probe, hash_probe_plain
-    from shotgun_tpu_torch.reference import KmerReference
+    from shotgun_tpu_torch.reference import PROBE_ENV, KmerReference
+    from shotgun_tpu_torch.routes import device_routes
     from shotgun_tpu_torch.tools import devbuild_proof
     from shotgun_tpu_torch.tools.bench_encode import bound_ms, h1_bytes
     from shotgun_tpu_torch.tools.bench_probe import h2_bytes
     from shotgun_tpu_torch.tools.profile_align import profile_route
-    from shotgun_tpu_torch.utils.synth import write_fastq
+    from shotgun_tpu_torch.utils.synth import to_fasta, write_fastq
 
     def log(msg):
         say("  12a " + msg)
 
-    t_phase = time.perf_counter()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    res = devbuild_proof.run(device=device, log=log)
-    by_path = {"12a devbuild_proof (sort join, default budget)": read_launches()}
-    sort_peak = torch.cuda.max_memory_allocated()
-    if res["num_kmers"] < P12_MIN_KEYS:
-        raise AssertionError(f"12a: {res['num_kmers']} distinct 31-mers < {P12_MIN_KEYS}")
-    genomes, reads, ref = res["genomes"], res["reads"], res["ref"]
-    parts = ["devbuild_proof: %d distinct 31-mers, device build cold %.3f s, warm %.3f s; "
-             "auto table under the default budget: %s (%s, %d B); align %.3f s = %.0f "
-             "reads/s; cross-check passed; launches %s; peak device memory %d B" % (
-                 res["num_kmers"], res["build_cold_s"], res["build_warm_s"],
-                 res["table"]["type"], res["table"]["method"], res["table"]["bytes"],
-                 res["align"]["seconds"], res["align"]["reads_per_s"],
-                 by_path["12a devbuild_proof (sort join, default budget)"], sort_peak)]
+    def peaks() -> str:
+        return "peak device memory %d B allocated, %d B reserved, budget %d B" % (
+            torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved(), budget)
 
-    # the same genomes with the budget raised before the first table call:
-    # build, assembly and align counted from 0, as phase 5 counts its path
+    t_phase = time.perf_counter()
+    budget = device_routes(device).hash_budget
+    # the default route, build, assembly and align counted from 0, as
+    # phase 5 counts its path
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     encode_window.launches_by_mode.clear()
     hash_probe.launches_by_mode.clear()
-    saved = os.environ.get(HBM_BUDGET_ENV)
-    os.environ[HBM_BUDGET_ENV] = str(P12_BUDGET)
-    try:
-        ref16 = KmerReference.from_device_build(genomes, K, device)
-        table = devbuild_proof.probe_table(ref16, device, log)
-    finally:
-        os.environ.pop(HBM_BUDGET_ENV)
-        if saved is not None:
-            os.environ[HBM_BUDGET_ENV] = saved
+    res = devbuild_proof.run(device=device, log=log)
+    path16 = "12a devbuild_proof (hash16, default budget)"
+    by_path = {path16: read_launches()}
+    table = res["table"]
+    if res["num_kmers"] < P12_MIN_KEYS:
+        raise AssertionError(f"12a: {res['num_kmers']} distinct 31-mers < {P12_MIN_KEYS}")
     if table["method"] != "hash16" or table["shape"][:2] != [P12_BUCKETS, 16]:
-        raise AssertionError(f"12a: budget {P12_BUDGET}: table {table}")
-    al16 = devbuild_proof.align(ref16, reads, device, P12_BATCH, log)
-    launches16 = read_launches()
-    by_path["12a hash16 (budget raised)"] = launches16
+        raise AssertionError(f"12a: the default budget {budget} B took {table}")
+    if torch.cuda.max_memory_allocated() > budget:
+        raise AssertionError(f"12a hash16: {peaks()}")
     row_launches = encode_window.launches_by_mode["keys, one row"]
     table_launches = hash_probe.launches_by_mode["16-slot"]
-    if row_launches != 1 or table_launches <= 0 or launches16["encode_window"] <= 1:
-        raise AssertionError(f"12a hash16: launches {launches16}, by mode "
+    if (row_launches != P12_DEVICE_BUILDS or table_launches <= 0
+            or by_path[path16]["encode_window"] <= row_launches):
+        raise AssertionError(f"12a hash16: launches {by_path[path16]}, by mode "
                              f"{dict(encode_window.launches_by_mode)}")
-    if al16["summary"] != res["align"]["summary"]:
+    genomes, reads, ref16 = res["genomes"], res["reads"], res["ref"]
+    parts = ["devbuild_proof: %d distinct 31-mers, device build cold %.3f s, warm %.3f s; "
+             "auto table at the default budget: %s (%s, %s, %d B) assembled in %.3f s; "
+             "align %.3f s = %.0f reads/s; cross-check passed; launches %s; %s" % (
+                 res["num_kmers"], res["build_cold_s"], res["build_warm_s"],
+                 table["type"], table["method"], table["shape"], table["bytes"],
+                 table["seconds"], res["align"]["seconds"], res["align"]["reads_per_s"],
+                 by_path[path16], peaks())]
+
+    # the same genomes on the sort join, asked for by SHOTGUN_TPU_PROBE
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    os.environ[PROBE_ENV] = "sort"
+    try:
+        ref = KmerReference.from_device_build(genomes, K, device)
+        sort_table = devbuild_proof.probe_table(ref, device, log)
+        al = devbuild_proof.align(ref, reads, device, P12_BATCH, log)
+    finally:
+        os.environ.pop(PROBE_ENV)
+    by_path["12a sort join (SHOTGUN_TPU_PROBE=sort)"] = launches = read_launches()
+    sort_peak = torch.cuda.max_memory_allocated() - base
+    if sort_table["method"] != "sort" or launches["hash_probe"] != 0:
+        raise AssertionError(f"12a sort: table {sort_table}, launches {launches}")
+    if al["summary"] != res["align"]["summary"]:
         raise AssertionError("12a: the sort and hash16 summaries differ")
-    parts.append("budget %d: hash16 table %s (%d B) assembled in %.3f s, align %.3f s = "
-                 "%.0f reads/s, launches %s, peak device memory %d B; summary == sort's" % (
-                     P12_BUDGET, table["shape"], table["bytes"], table["seconds"],
-                     al16["seconds"], al16["reads_per_s"], launches16,
-                     torch.cuda.max_memory_allocated()))
+    parts.append("SHOTGUN_TPU_PROBE=sort: %s (%d B), align %.3f s = %.0f reads/s, launches "
+                 "%s, %s (%d B above the %d B held before); summary == hash16's" % (
+                     sort_table["type"], sort_table["bytes"], al["seconds"],
+                     al["reads_per_s"], launches, peaks(), sort_peak, base))
     fq = os.path.join(tmp, "devbuild.fq")
     write_fastq(fq, reads.codes)
-    for name, r in (("sort", ref), ("hash16", ref16)):
-        prof = profile_route(r, fq, device, P12_BATCH)
+    for name, r in (("hash16", ref16), ("sort", ref)):
+        os.environ[PROBE_ENV] = name
+        try:
+            prof = profile_route(r, fq, device, P12_BATCH)
+        finally:
+            os.environ.pop(PROBE_ENV)
         parts.append("%s route, the reads streamed from a FASTQ: %.0f reads/s, device "
                      "pipeline alone %.3f ms a batch of %d, profiled stream %.3f ms with the "
-                     "device busy %.3f ms: idle share %.4f" % (
+                     "device busy %.3f ms: idle share %.4f; peak device memory %d B "
+                     "allocated, %d B reserved (%d B held before), budget %d B" % (
                          name, prof["stream_reads_per_s"], prof["device_ms_per_batch"],
-                         P12_BATCH, prof["wall_ms"], prof["busy_ms"], prof["idle_share"]))
-    os.remove(fq)
+                         P12_BATCH, prof["wall_ms"], prof["busy_ms"], prof["idle_share"],
+                         prof["peak_allocated_bytes"], prof["peak_reserved_bytes"],
+                         prof["base_allocated_bytes"], budget))
 
     # H1 on the 100 Mbp genome row, H2 on the 2^25-bucket table
     row_d = torch.from_numpy(_host_prep(genomes)[0]).to(device)[None]
@@ -1696,10 +1752,40 @@ def phase_100mbp_devbuild(tmp: str, device) -> tuple:
               "rows), bound %.4f ms, %.1f%% of it" % (
                   h2_mode["shape"], h2_mode["stash_rows"], probe_ms, probe_plain_ms,
                   h2_nbytes, buckets, h2_mode["bound_ms"], 100 * h2_mode["bound_share"])]
+
+    # the CLI's dumpalign -g of the same genomes and reads, in a child
+    want = json.dumps(res["align"]["summary"], indent=4) + "\n"
+    del ref, ref16, r, tab16, args, keys, res["ref"]
+    torch.cuda.empty_cache()
+    fa = os.path.join(tmp, "devbuild.fa")
+    with open(fa, "w") as fh:
+        fh.write(to_fasta(genomes))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_CHILD, "-t", "dumpalign", "-g", fa, "-k", str(K),
+         "--reads", fq, "--profile"], cwd=HERE, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cuda"))
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"12a CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    stages = profile_stages(proc.stderr)
+    by_path["12a CLI dumpalign -g"] = cli = child_launches(proc.stderr)
+    if "db_build_device" not in stages or "db_build" in stages or cli["hash_probe"] <= 0:
+        raise AssertionError(f"12a CLI: stages {stages}, launches {cli}")
+    if proc.stdout != want:
+        raise AssertionError("12a: the CLI's dumpalign -g stdout != the library summary")
+    os.remove(fa)
+    os.remove(fq)
+    parts.append("CLI dumpalign -g of the %d-base genomes (a child): stdout == the library "
+                 "summary, wall %.3f s, fasta_parse %.3f s, db_build_device %.3f s, "
+                 "table_build %.3f s, stream_align %.3f s, launches %s" % (
+                     genomes.codes.size, cli_wall, stages["fasta_parse"],
+                     stages["db_build_device"], stages["table_build"],
+                     stages["stream_align"], cli))
     say("phase 12a 100 Mbp device build (%.3f s): %s; host peak RSS %d B" % (
         time.perf_counter() - t_phase, "; ".join(parts), peak_rss()))
-    p12a = {"summary": res["align"]["summary"], "table_bytes": res["table"]["bytes"],
-            "sort_peak": sort_peak}
+    p12a = {"summary": res["align"]["summary"], "table_bytes": sort_table["bytes"],
+            "sort_peak": sort_peak, "cli_db_build_device_s": stages["db_build_device"]}
     return by_path, h1_mode, h2_mode, p12a
 
 
@@ -1827,21 +1913,19 @@ def phase_table_axis(p12a: dict) -> dict:
     return by_path
 
 
-def phase_100mbp_bulk(tmp: str, device) -> dict:
+def phase_100mbp_bulk(tmp: str, device, p12a: dict) -> dict:
     """Phase 12b: ``bulk_proof`` part a (host build, the 16-slot table
-    assembled on the card, the stream twice, 64 sampled reads), the
-    assembly again alone against its budget term, the reference saved as a
-    ``.kdb`` and ``-t dumpalign -r`` of it on the FASTQ in a CLI child,
-    whose stdout must be the library's summary.  Returns {path: launches}."""
+    assembled on the card under the default budget, the stream twice, 64
+    sampled reads), the assembly again alone against its budget term, the
+    reference saved as a ``.kdb`` and ``-t dumpalign -r`` of it on the
+    FASTQ in a CLI child, whose stdout must be the library's summary; the
+    host build beside 12a's CLI device build.  Returns {path: launches}."""
     import gc
 
     import torch
 
-    from shotgun_tpu_torch.index.device_build import (
-        HBM_BUDGET_ENV,
-        index_hash_table,
-        index_table_bytes,
-    )
+    from shotgun_tpu_torch.index.device_build import index_hash_table, index_table_bytes
+    from shotgun_tpu_torch.routes import device_routes
     from shotgun_tpu_torch.tools import bulk_proof
 
     def log(msg):
@@ -1852,18 +1936,12 @@ def phase_100mbp_bulk(tmp: str, device) -> dict:
     if free < P12_DISK:
         raise AssertionError(f"12b needs {P12_DISK} B free in {tmp} for the FASTQ and "
                              f"the .kdb, has {free}")
+    budget = device_routes(device).hash_budget
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    saved = os.environ.get(HBM_BUDGET_ENV)
-    os.environ[HBM_BUDGET_ENV] = str(P12B_BUDGET)
-    try:
-        a = bulk_proof.part_a(tmp, device, log=log)
-    finally:
-        os.environ.pop(HBM_BUDGET_ENV)
-        if saved is not None:
-            os.environ[HBM_BUDGET_ENV] = saved
+    a = bulk_proof.part_a(tmp, device, log=log)
     lib_path = "12b bulk_proof part a (hash16 assembled on the card)"
     by_path = {lib_path: read_launches()}
     lib_peak = torch.cuda.max_memory_allocated()
@@ -1874,11 +1952,9 @@ def phase_100mbp_bulk(tmp: str, device) -> dict:
     if min(by_path[lib_path].values()) <= 0:
         raise AssertionError(f"12b: launches {by_path}")
     lib_wall = time.perf_counter() - t_phase
-    # the least whole GB at which the loaded-index term admits the table
     term = index_table_bytes(a["num_kmers"], a["num_sets"], 16, P12_BUCKETS)
-    if not term <= P12B_BUDGET < term + 1_000_000_000:
-        raise AssertionError(f"12b: P12B_BUDGET {P12B_BUDGET} B is not the least whole "
-                             f"GB above the term {term} B")
+    if term > budget:
+        raise AssertionError(f"12b: the loaded-index term {term} B > the budget {budget} B")
     # the assembly alone: its peak against that term, and the library's
     # table again, bit for bit
     index = a["ref"].index
@@ -1910,8 +1986,7 @@ def phase_100mbp_bulk(tmp: str, device) -> dict:
     proc, child_rss = run_watching_rss(
         [sys.executable, "-c", CLI_CHILD, "-t", "dumpalign", "-r", kdb, "--reads",
          a["fastq"], "--profile"], 900, cwd=HERE,
-        env=dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cuda",
-                 **{HBM_BUDGET_ENV: str(P12B_BUDGET)}))
+        env=dict(os.environ, SHOTGUN_TPU_TORCH_DEVICE="cuda"))
     cli_wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"12b CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
@@ -1927,18 +2002,18 @@ def phase_100mbp_bulk(tmp: str, device) -> dict:
     os.remove(a["fastq"])
     n = a["reads"]
     say("phase 12b 100 Mbp host build (%.3f s): %d distinct 31-mers, %d sets; library "
-        "(budget %d B): host build %.3f s, sort table prep + upload %.3f s (%d B), FASTQ "
+        "(budget %d B): host build %.3f s (12a's CLI db_build_device %.3f s), sort table prep + upload %.3f s (%d B), FASTQ "
         "%.3f s (%d B), 16-slot table_build (assembled on the card) %.3f s (%d B), stream "
         "warm %.3f s, timed %.3f s = %.0f reads/s, %d/%d sampled reads == "
         "Read.pseudo_align (%.3f s), wall %.3f s, peak device memory %d B, launches %s; "
         "the assembly again alone: %.3f s, == the library's table, peak %d B above the "
         "%d B held before, budget term %d B; .kdb %d B written in %.3f s; CLI dumpalign "
-        "-r .kdb --reads (a child, same budget): stdout == the library summary, wall "
+        "-r .kdb --reads (a child, the default budget): stdout == the library summary, wall "
         "%.3f s, kdb_load %.3f s, table_build %.3f s of it hash_table_device %.3f s, "
         "stream_align %.3f s = %.0f reads/s, launches %s, peak RSS %s (sampled from "
         "outside every 0.1 s); host peak RSS %d B; %s" % (
-            time.perf_counter() - t_phase, a["num_kmers"], a["num_sets"], P12B_BUDGET,
-            a["host_build_s"], a["sort_table"]["seconds"], a["sort_table"]["bytes"],
+            time.perf_counter() - t_phase, a["num_kmers"], a["num_sets"], budget,
+            a["host_build_s"], p12a["cli_db_build_device_s"], a["sort_table"]["seconds"], a["sort_table"]["bytes"],
             a["fastq_s"], a["fastq_bytes"], a["table"]["seconds"], a["table"]["bytes"],
             a["stream_warm_s"], a["stream_timed_s"], n / a["stream_timed_s"],
             a["sampled"] - a["mismatches"], a["sampled"], a["sample_s"], lib_wall, lib_peak,
@@ -2111,6 +2186,7 @@ def main() -> int:
     say(f"phase 1 device: {name}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} card(s)")
     say(smi)
+    say(routes_line(device))
 
     # 2. build: the native host library (g++) beside the CUDA kernels (nvcc)
     t0 = time.perf_counter()
@@ -2139,10 +2215,12 @@ def main() -> int:
         WORD_QUAL[0], WORD_QUAL[1] + 1, size=strain_work.codes.shape, dtype=np.uint8)
 
     # 3. database build, device against host; 4. kernels against plain
-    tab, strain_index = phase_db_build([("32 Mbp main-path genomes", genomes),
+    tab, strain_index = phase_db_build([("48 Mbp main-path genomes", genomes),
                                         ("strain panel", strains)], device)
-    kernels = phase_kernels(tab, strain_index, work.codes[:BATCH],
-                            strain_work.codes[:BATCH], genomes, rng, device)
+    # at the main path's batch: the card's auto batch of its N_READS reads
+    b = auto_batch(N_READS, device)
+    kernels = phase_kernels(tab, strain_index, work.codes[:b], strain_work.codes[:b],
+                            genomes, rng, device)
     del tab, strain_index
     torch.cuda.empty_cache()
 
@@ -2170,9 +2248,9 @@ def main() -> int:
         phase_goldens(tmp)
 
         # 8. the rest of the CLI at size
-        by_path.update(phase_strain_files(tmp, sfa, sfq))
+        by_path.update(phase_strain_files(tmp, sfa, sfq, device))
         torch.cuda.empty_cache()
-        by_path["32 Mbp align"] = phase_main_files(tmp, fa, fq, gi, device)
+        by_path["48 Mbp align"] = phase_main_files(tmp, fa, fq, gi, device)
         torch.cuda.empty_cache()
         phase_extsim(tmp, rng, device)
         torch.cuda.empty_cache()
@@ -2195,7 +2273,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         # 11f. the table axis across two processes, held to 12a
         by_path.update(phase_table_axis(p12a))
-        by_path.update(phase_100mbp_bulk(tmp, device))
+        by_path.update(phase_100mbp_bulk(tmp, device, p12a))
         torch.cuda.empty_cache()
         by_path.update(phase_100mbp_words(device))
         say(f"phase 12 in {time.perf_counter() - t12:.3f} s")

@@ -65,6 +65,7 @@ from shotgun_tpu_torch.parallel.table_sharded import (
     shard_sorted_table,
 )
 from shotgun_tpu_torch.reference import PROBE_ENV, KDBFormatError, KmerReference
+from shotgun_tpu_torch.routes import device_routes
 from shotgun_tpu_torch.utils.device import resolve_device, upload
 from shotgun_tpu_torch.utils.profiling import phase
 
@@ -340,12 +341,6 @@ def _prefetch_iter(it: Iterable, depth: int = 2) -> Iterator:
         t.join(timeout=5.0)
 
 
-def _auto_batch(est_reads: int) -> int:
-    """batch_size=0 (auto): the large batch for big inputs, a small one
-    for small inputs (output does not depend on the batch size)."""
-    return 32768 if est_reads >= 131_072 else 2048
-
-
 def _jax_record_width(r: int) -> int:
     """The JAX package's record axis for ``r`` records: its shape bucket
     (a power of two, at least 8; 2^24 steps past 2^24), its
@@ -563,7 +558,7 @@ class PseudoAlignment:
         after the validation, and the store fills only then, so an
         invalid input never reaches it."""
         self._check_args(m, p, min_read_quality, min_kmer_quality, max_genomes)
-        b = batch_size or _auto_batch(stream.est_records())
+        b = batch_size or device_routes(self.device).auto_batch(stream.est_records())
         use_qual = min_read_quality is not None or min_kmer_quality is not None
         stream.start_validation()
 
@@ -639,7 +634,7 @@ class PseudoAlignment:
             raise ValueError("mesh-sharded alignment requires store_reads=False")
         self._check_args(m, p, min_read_quality, min_kmer_quality, max_genomes)
         n = batch.num_reads
-        b = batch_size or _auto_batch(n)
+        b = batch_size or device_routes(self.device).auto_batch(n)
         if mesh is not None:
             b = -(-b // mesh.shape["data"]) * mesh.shape["data"]
         lpad = _lpad(batch.max_len, self.kmer_reference.index.k)

@@ -5,15 +5,16 @@ The four tasks of the reference CLI (``reference``, ``dumpref``,
 ``align``, ``dumpalign``) with the JAX package's flag surface, per-task
 validation, defaulting quirks, error strings and exit codes, and its
 files (``.kdb``, ``.aln``).  Databases are built on the host, except for
-``dumpalign -g``, which builds on the device for genomes of 4-64 Mbp as
-the JAX package's does (``dumpalign_reference``): only dumpalign never
-needs the host postings.  Any k >= 1 aligns (k > 31 by the sort join of
-multi-word keys); at k < 1 no read maps.  ``dumpalign -r/-g`` runs over a
-device mesh when the environment asks for one (``parallel.distributed
-initialize_from_env``: ``SHOTGUN_TPU_NPROCS`` processes, or
-``SHOTGUN_TPU_MESH=data`` over the local devices), as the JAX package's
-does: the reads parsed whole and sharded, the database of ``-g`` built on
-the host, and only process 0 printing the summary.
+``dumpalign -g``, which builds on the device for genomes inside the
+device's window (``routes.device_routes``: 4-64 Mbp off a card, the JAX
+package's) as the JAX package's does (``dumpalign_reference``): only
+dumpalign never needs the host postings.  Any k >= 1 aligns (k > 31 by
+the sort join of multi-word keys); at k < 1 no read maps.
+``dumpalign -r/-g`` runs over a device mesh when the environment asks for
+one (``parallel.distributed initialize_from_env``: ``SHOTGUN_TPU_NPROCS``
+processes, or ``SHOTGUN_TPU_MESH=data`` over the local devices), as the
+JAX package's does: the reads parsed whole and sharded, the database of
+``-g`` built on the host, and only process 0 printing the summary.
 
 The device comes from ``$SHOTGUN_TPU_TORCH_DEVICE`` (default ``cuda``;
 asking for CUDA without it is an error, never a silent CPU run).
@@ -54,15 +55,12 @@ from shotgun_tpu_torch.aligner import (
 from shotgun_tpu_torch.parallel import distributed
 from shotgun_tpu_torch.parallel.mesh import Mesh
 from shotgun_tpu_torch.reference import PROBE_ENV, KDBFormatError, KmerReference
+from shotgun_tpu_torch.routes import device_routes
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.profiling import PROFILER, phase
 
-#: 0 = auto: aligner._auto_batch picks by input size
+#: 0 = auto: ``routes.Routes.auto_batch`` picks by device and input size
 DEFAULT_BATCH_SIZE = 0
-#: the device build's genome-size window in bases (the JAX package's,
-#: sized on a TPU); the environment variables below override it
-DEVICE_BUILD_MIN = 4_000_000
-DEVICE_BUILD_MAX = 64_000_000
 
 
 # ---------------------------------------------------------------------------
@@ -121,14 +119,16 @@ def parse_arguments(args: Optional[List[str]] = None) -> argparse.Namespace:
 # databases
 # ---------------------------------------------------------------------------
 
-def _device_build_window() -> Tuple[int, int]:
-    """($SHOTGUN_TPU_DEVICE_BUILD_MIN, _MAX); both defaults when either
-    is malformed."""
+def _device_build_window(device: torch.device) -> Tuple[int, int]:
+    """($SHOTGUN_TPU_DEVICE_BUILD_MIN, _MAX), each unset ``device``'s
+    (``routes.device_routes``); both the device's when either is
+    malformed."""
+    r = device_routes(device)
     try:
-        return (int(os.environ.get("SHOTGUN_TPU_DEVICE_BUILD_MIN", DEVICE_BUILD_MIN)),
-                int(os.environ.get("SHOTGUN_TPU_DEVICE_BUILD_MAX", DEVICE_BUILD_MAX)))
+        return (int(os.environ.get("SHOTGUN_TPU_DEVICE_BUILD_MIN", r.device_build_min)),
+                int(os.environ.get("SHOTGUN_TPU_DEVICE_BUILD_MAX", r.device_build_max)))
     except ValueError:
-        return DEVICE_BUILD_MIN, DEVICE_BUILD_MAX
+        return r.device_build_min, r.device_build_max
 
 
 def create_reference(fasta_file: str, kmer_size: int, filter_similar: bool,
@@ -164,7 +164,7 @@ def dumpalign_reference(fasta_file: str, kmer_size: int, filter_similar: bool,
         genomes = (container.to_genome_arrays()
                    if hasattr(container, "to_genome_arrays")
                    else pack_genomes(list(container)))
-        lo, hi = _device_build_window()
+        lo, hi = _device_build_window(device)
         if lo <= genomes.codes.size <= hi:
             with phase("db_build_device"):
                 ref = KmerReference.from_device_build(genomes, kmer_size, device)

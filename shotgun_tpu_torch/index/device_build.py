@@ -50,6 +50,7 @@ from shotgun_tpu_torch.io import native as _native
 from shotgun_tpu_torch.index.hashtable import STASH_CAP, _TARGET_LAMBDA, _next_pow2
 from shotgun_tpu_torch.ops.encode import M32, encode_window, mix32, pack_codes_2bit, split_key
 from shotgun_tpu_torch.ops.probe_sort import host_key_words
+from shotgun_tpu_torch.routes import JAX_ROUTES, device_routes
 
 #: record-count cap: a (set, record) pair packs as set * R_CAP + record
 R_CAP = 4096
@@ -64,7 +65,9 @@ NRUNS_CAP = 1 << 16
 HASH_SLOTS = 16
 HASH_LAMBDA = _TARGET_LAMBDA[HASH_SLOTS]
 HBM_BUDGET_ENV = "SHOTGUN_TPU_HASH_HBM_BUDGET"
-HBM_BUDGET_DEFAULT = 10_000_000_000
+#: the budget off a CUDA device (the JAX package's); a card's is
+#: ``routes.card_routes``'s
+HBM_BUDGET_DEFAULT = JAX_ROUTES.hash_budget
 #: rows a step of the table assembly's chunked passes, and the most bytes
 #: of temporaries such a step holds a row (``index_table_bytes``)
 _CHUNK = 1 << 20
@@ -317,10 +320,13 @@ def _place(rows: _Rows, nb: int, slots: int, device: torch.device
     return table.view(nb, slots, 4), stash
 
 
-def _budget() -> int:
-    """``$SHOTGUN_TPU_HASH_HBM_BUDGET`` in bytes (``HBM_BUDGET_DEFAULT``
-    unset); a value that is not an integer raises, as in the JAX package."""
-    return int(os.environ.get(HBM_BUDGET_ENV, HBM_BUDGET_DEFAULT))
+def _budget(device: torch.device) -> int:
+    """``$SHOTGUN_TPU_HASH_HBM_BUDGET`` in bytes, unset ``device``'s
+    (``routes.device_routes``: the card's on CUDA, else
+    ``HBM_BUDGET_DEFAULT``); a value that is not an integer raises, as in
+    the JAX package."""
+    budget = os.environ.get(HBM_BUDGET_ENV)
+    return device_routes(device).hash_budget if budget is None else int(budget)
 
 
 def _first_buckets(u: int, slots: int) -> int:
@@ -332,8 +338,8 @@ def device_hash_table(built: dict
                       ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """(table int32 [nb, 16, 4], stash int32 [<= 64, 4]) on the build's
     device from ``device_build_tables`` output, or None when the table
-    would pass ``$SHOTGUN_TPU_HASH_HBM_BUDGET`` bytes (10 GB by default)
-    or its stash still overflows after two doublings.  Both are
+    would pass the device's budget (``_budget``: 10 GB off a card) or its
+    stash still overflows after two doublings.  Both are
     deterministic; a device error raises, and so does a budget that is
     not an integer, as in the JAX package.
 
@@ -344,7 +350,7 @@ def device_hash_table(built: dict
     rows = _Rows(built["num_kmers"], lambda a, b: keys[a:b],
                  lambda a, b: (sid[a:b], gc[a:b]))
     nb = _first_buckets(rows.n, HASH_SLOTS)
-    budget = _budget()
+    budget = _budget(keys.device)
     for _ in range(3):
         # re-checked on every doubling: table + the build's workspace
         if nb * HASH_SLOTS * 16 + 8 * built["num_windows"] * 4 > budget:
@@ -372,11 +378,12 @@ def index_table_bytes(num_kmers: int, num_sets: int, slots: int, nb: int) -> int
     return nb * slots * 16 + 5 * num_kmers + 4 * num_sets + _CHUNK * _CHUNK_ROW_BYTES
 
 
-def index_table_admitted(index, slots: int) -> bool:
-    """Whether ``$SHOTGUN_TPU_HASH_HBM_BUDGET`` admits the table of
+def index_table_admitted(index, slots: int, device: torch.device) -> bool:
+    """Whether ``device``'s budget (``_budget``) admits the table of
     ``index`` at the host builder's first bucket count."""
     u = index.num_kmers
-    return index_table_bytes(u, index.num_sets, slots, _first_buckets(u, slots)) <= _budget()
+    term = index_table_bytes(u, index.num_sets, slots, _first_buckets(u, slots))
+    return term <= _budget(device)
 
 
 def index_hash_table(index, slots: int, device: torch.device
@@ -395,9 +402,9 @@ def index_hash_table(index, slots: int, device: torch.device
     buckets, then for the rows), so nothing of the index stays on the
     device.
 
-    None when ``index_table_bytes`` passes ``$SHOTGUN_TPU_HASH_HBM_BUDGET``
-    (10 GB by default), checked at the first bucket count and on every
-    doubling; the caller then builds the table on the host.  A device
+    None when ``index_table_bytes`` passes ``device``'s budget
+    (``_budget``: 10 GB off a card), checked at the first bucket count and
+    on every doubling; the caller then builds the table on the host.  A device
     error raises."""
     keys = host_key_words(index.kmer_words, index.k)[0]
     sid = np.ascontiguousarray(index.set_id, dtype=np.int32)
@@ -410,7 +417,7 @@ def index_hash_table(index, slots: int, device: torch.device
     rows = _Rows(index.num_kmers, lambda a, b: torch.from_numpy(keys[a:b]).to(device),
                  payload)
     nb = _first_buckets(rows.n, slots)
-    budget = _budget()
+    budget = _budget(device)
     while index_table_bytes(rows.n, index.num_sets, slots, nb) <= budget:
         placed = _place(rows, nb, slots, device)
         if placed is not None:

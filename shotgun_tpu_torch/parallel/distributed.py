@@ -40,13 +40,18 @@ from shotgun_tpu_torch.utils.device import resolve_device
 DEFAULT_COORDINATOR = "localhost:29400"
 
 
+def card_of(rank: int) -> int:
+    """The card process ``rank`` computes on when the job runs on CUDA."""
+    return rank % torch.cuda.device_count()
+
+
 def rank_device(rank: int, device: Optional[Union[str, torch.device]] = None
                 ) -> torch.device:
-    """The device process ``rank`` computes on: ``cuda:(rank %
-    device_count)`` when ``resolve_device(device)`` is CUDA, else it."""
+    """The device process ``rank`` computes on: ``cuda:card_of(rank)``
+    when ``resolve_device(device)`` is CUDA, else it."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        return torch.device("cuda", rank % torch.cuda.device_count())
+        return torch.device("cuda", card_of(rank))
     return dev
 
 

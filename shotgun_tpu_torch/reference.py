@@ -9,8 +9,9 @@ package's ``.kdb`` npz container, or built on the device
 (``from_device_build``: it aligns, but has no host k-mer arrays to save
 or dump), and turned into device probe tables.  ``write_summary`` streams
 the dumpref JSON.  The probe routes are the JAX package's: at k <= 31
-``auto`` picks the sort join (``sort``) up to ``AUTO_HASH_MIN_KEYS``
-distinct k-mers and the 16-slot ``hash16`` table above, and ``hash`` (or
+``auto`` picks the sort join (``sort``) up to the device's crossover
+(``routes.device_routes``: the JAX package's 8M distinct k-mers off a
+card) and the 16-slot ``hash16`` table above, and ``hash`` (or
 any other value) is the 4-slot table; at k > 31 every route is the sort
 join of multi-word keys, and ``hash`` raises.
 """
@@ -45,6 +46,7 @@ from shotgun_tpu_torch.index.hashtable import ProbeTable, build_probe_table
 from shotgun_tpu_torch.models.pipeline import DeviceTable
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
 from shotgun_tpu_torch.ops.probe_sort import sorted_table, sorted_table_host
+from shotgun_tpu_torch.routes import device_routes
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.profiling import phase
 
@@ -120,9 +122,9 @@ class _DeviceIndexStub:
 
 
 class KmerReference:
-    #: auto probe crossover in distinct k-mers (the JAX package's value,
-    #: set on a TPU; to be re-derived from H100 measurements)
-    AUTO_HASH_MIN_KEYS = 8_000_000
+    #: auto probe crossover in distinct k-mers; None takes the device's
+    #: (``routes.device_routes``), a number overrides it
+    AUTO_HASH_MIN_KEYS: Optional[int] = None
 
     def __init__(
         self,
@@ -531,7 +533,8 @@ class KmerReference:
         """'sort' (the sort join), 'hash' (4 slots) or 'hash16' (16
         slots); ``method`` defaults to $SHOTGUN_TPU_PROBE or 'auto'.
         The JAX package's routes (its ``reference.py:574-628``, ``:645``):
-        at k <= 31 'auto' is 'hash16' above ``AUTO_HASH_MIN_KEYS`` distinct
+        at k <= 31 'auto' is 'hash16' above the crossover
+        (``AUTO_HASH_MIN_KEYS``, else this reference's device's) distinct
         k-mers, unless the device-built hash table could not be assembled,
         and 'sort' otherwise, and any value but 'sort' and 'hash16' is
         'hash'.  At k > 31 every value but 'hash' is the sort join of
@@ -546,8 +549,10 @@ class KmerReference:
                     f"k={k}")
             return "sort"
         if method == "auto":
-            big = (self.index.num_kmers > self.AUTO_HASH_MIN_KEYS
-                   and not self._hash16_failed)
+            crossover = self.AUTO_HASH_MIN_KEYS
+            if crossover is None:
+                crossover = device_routes(self.device).auto_hash_min_keys
+            big = self.index.num_kmers > crossover and not self._hash16_failed
             return "hash16" if big else "sort"
         return method if method in ("sort", "hash16") else "hash"
 
@@ -617,7 +622,7 @@ class KmerReference:
         the budget admits it, else the host builder's, uploaded."""
         slots = 16 if method == "hash16" else 4
         ht = None
-        if index_table_admitted(self.index, slots):
+        if index_table_admitted(self.index, slots, device):
             with phase("hash_table_device"):
                 ht = index_hash_table(self.index, slots, device)
         if ht is not None:

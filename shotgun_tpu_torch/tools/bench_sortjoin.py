@@ -23,6 +23,16 @@ after one warm-up call:
   kernel H2 and the hash path's first-occurrence dedupe; its hits, set
   ids, genome counts and first occurrences must equal the join's.
 
+Beside them each table's one-time making from the same rows
+(``assembly_s``, after one warm call): ``device_hash_table`` (a device
+build's 16-slot table from its rows), ``index_hash_table`` (a host
+index's or a ``.kdb``'s 16-slot table, uploaded a chunk at a time) and
+``sorted_table`` (a host index's sort table uploaded; a device build's
+is its rows).  ``run_ms`` spreads them over the ``run_batches`` batches
+of a RUN_READS-read run at ``--batch``: each route's batches plus its
+table, for a device build and for a host index, the inputs of the auto
+crossover (``routes.py``).
+
 At ``--k`` above 31 (multi-word keys), on the card only: the strain panel
 of ``utils/synth.py`` (the one of ``chip_smoke.py`` phases 6 and 9), its
 host indexes at k and at 31, and one batch of its reads on the stream's
@@ -43,6 +53,7 @@ import argparse
 import json
 import sys
 import time
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -50,7 +61,7 @@ import torch
 
 from shotgun_tpu_torch.aligner import _lpad
 from shotgun_tpu_torch.index.build import build_index
-from shotgun_tpu_torch.index.device_build import device_hash_table
+from shotgun_tpu_torch.index.device_build import device_hash_table, index_hash_table
 from shotgun_tpu_torch.models.pipeline import _first_occurrence, _window_ok
 from shotgun_tpu_torch.ops.encode import encode_window, encode_words, pack_codes_2bit, word_spans
 from shotgun_tpu_torch.ops.probe import probe_kmers
@@ -59,8 +70,13 @@ from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted, probe_dedupe_
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.synth import READ_LEN, STRAIN_LEN, strain_panel, strain_reads
 
+K = 31
 #: windows per read: (160 - 31 + 1) on the stream's row stride
 WINDOWS = 130
+#: genome sets of the benchmark rows; the reads of the run that ``run_ms``
+#: prices (chip_smoke's main path)
+SETS = 1 << 20
+RUN_READS = 524_288
 
 
 def time_ms(fn: Callable[[], object], iters: int, device: torch.device) -> float:
@@ -126,8 +142,9 @@ def make_case(rng: np.random.Generator, u: int, b: int, device: torch.device):
     draw = torch.unique(draw.to(device))
     pick = torch.from_numpy(rng.permutation(draw.numel())[:u]).to(device)
     tkeys = torch.sort(draw[pick]).values
-    sid = torch.from_numpy(rng.integers(0, 1 << 20, size=u, dtype=np.int32)).to(device)
-    gc = torch.from_numpy(rng.integers(1, 5, size=u, dtype=np.int32)).to(device)
+    sid = torch.from_numpy(rng.integers(0, SETS, size=u, dtype=np.int32)).to(device)
+    sizes = torch.from_numpy(rng.integers(1, 5, size=SETS, dtype=np.int32)).to(device)
+    gc = sizes[sid.long()]
     n = b * WINDOWS
     from_table = torch.from_numpy(rng.random(n) < 0.5).to(device)
     idx = torch.from_numpy(rng.integers(0, u, size=n)).to(device)
@@ -166,6 +183,47 @@ def join_steps(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor
     }
 
 
+def host_index(tab: SortedTableDev) -> SimpleNamespace:
+    """The table's rows as the fields of a host ``KmerIndex`` at k = 31
+    that ``index_hash_table`` and ``sorted_table_host`` read (a genome
+    count is its set's size)."""
+    (tkeys,) = tab.words
+    sid, gc = tab.sid.cpu().numpy(), tab.gc.cpu().numpy()
+    sizes = np.zeros(SETS, dtype=np.int32)
+    sizes[sid] = gc
+    return SimpleNamespace(k=K, kmer_words=tkeys.cpu().numpy().view(np.uint32).reshape(-1, 2),
+                           set_id=sid, set_sizes=sizes, num_kmers=sid.size, num_sets=SETS,
+                           genome_counts=lambda: gc)
+
+
+def assembly_s(tab: SortedTableDev, device: torch.device, iters: int = 3) -> dict:
+    """Seconds of each table's making from ``tab``'s rows (see the module
+    doc), each the mean of ``iters`` calls after a warm one."""
+    (tkeys,) = tab.words
+    built = dict(keys=tkeys, sid=tab.sid, gc=tab.gc, num_kmers=tkeys.numel(),
+                 num_windows=tkeys.numel())
+    index = host_index(tab)
+    makers = {"device_hash_table": lambda: device_hash_table(built),
+              "index_hash_table": lambda: index_hash_table(index, 16, device),
+              "sorted_table": lambda: sorted_table(*sorted_table_host(index), device)}
+    return {name: time_ms(fn, iters, device) / 1e3 for name, fn in makers.items()}
+
+
+def run_batches(batch: int) -> int:
+    """The batches of a RUN_READS-read run at ``batch`` reads a batch."""
+    return -(-RUN_READS // batch)
+
+
+def run_ms(join_ms: float, hash16_ms: float, made_s: dict, batches: int) -> dict:
+    """Milliseconds of ``batches`` batches on each route with its table's
+    making, for a device build and for a host index."""
+    join, h16 = batches * join_ms, batches * hash16_ms
+    return {"device build, sort": join,
+            "device build, hash16": h16 + 1e3 * made_s["device_hash_table"],
+            "host index, sort": join + 1e3 * made_s["sorted_table"],
+            "host index, hash16": h16 + 1e3 * made_s["index_hash_table"]}
+
+
 def bench(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor,
           iters: int, device: torch.device) -> dict:
     """Times and equality checks of one table size (see the module doc)."""
@@ -197,6 +255,11 @@ def bench(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor,
     }
     res["sorted_rows"] = int(tagged.numel())
     res["ms"] = {name: time_ms(fn, iters, device) for name, fn in steps.items()}
+    del ht, tagged, order, last, steps
+    res["assembly_s"] = assembly_s(tab, device)
+    res["run_batches"] = run_batches(keys.shape[0])
+    res["run_ms"] = run_ms(res["ms"]["join"], res["ms"]["hash16"], res["assembly_s"],
+                           res["run_batches"])
     return res
 
 
@@ -290,7 +353,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"{u} keys, {res['sorted_rows']} sorted rows: " + ", ".join(
             f"{name} {ms:.3f} ms" for name, ms in res["ms"].items())
             + f"; cummax join equal {res['cummax_equal']}, hash16 equal "
-            f"{res['hash16_equal']}", flush=True)
+            f"{res['hash16_equal']}; tables made in " + ", ".join(
+                f"{name} {s:.4f} s" for name, s in res["assembly_s"].items())
+            + f"; {res['run_batches']} batches with the table: " + ", ".join(
+                f"{name} {ms:.3f} ms" for name, ms in res["run_ms"].items()), flush=True)
         out["runs"].append(res)
     print(json.dumps(out), flush=True)
     return out

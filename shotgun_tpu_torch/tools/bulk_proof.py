@@ -8,8 +8,9 @@ the JAX repo's ``tools/bulk_proof.py``, parts a, b and ab).
 Part A (k = 31, seed 0): 16 random genomes of ``--a-len`` bases (6.25
 Mbp: 100 Mbp, about 100M distinct 31-mers) built on the host (native
 C++), timed; the sort table's upload, timed; ``--a-reads`` (1,048,576)
-error-free 150 bp reads written as a FASTQ; the probe table of the run's route (``auto``: above 8M distinct
-k-mers the host-built 16-slot table, uploaded), timed on its own line;
+error-free 150 bp reads written as a FASTQ; the probe table of the run's
+route (``auto``: above the device's crossover, ``routes.py``, the 16-slot
+table, assembled on the device under its budget), timed on its own line;
 ``align_stream`` of the FASTQ at ``--batch`` twice, a warm run and a timed
 one; then 64 reads (drawn by the same generator) aligned by
 ``align_packed_reads`` with the read store, each read's type held against

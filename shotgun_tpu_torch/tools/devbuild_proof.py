@@ -13,9 +13,9 @@ from seed 0, the JAX script's data), one line each:
 
 - ``KmerReference.from_device_build`` at k = 31, cold and then warm;
 - the probe table of ``$SHOTGUN_TPU_PROBE``'s route (``auto`` by default:
-  the 16-slot table above 8M distinct k-mers unless its assembly is over
-  ``$SHOTGUN_TPU_HASH_HBM_BUDGET``, then the sort join): its type, bytes
-  and making time;
+  the 16-slot table above the device's crossover unless its assembly is
+  over the device's budget, ``routes.py``, then the sort join): its type,
+  bytes and making time;
 - ``align_packed_reads`` of every read at ``--batch`` without the read
   store, and its reads/s;
 - the cross-check at reduced size (8 genomes x 500 kbp, 512 reads, seeds

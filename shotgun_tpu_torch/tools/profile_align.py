@@ -5,6 +5,7 @@
         [--strains 0] [--mutation-rate 0] [--error-rate 0]
         [--probe auto|sort|hash|hash16] [--device-build]
         [--batch 32768] [--repeats 5] [--fill-threads N ...] [--out DIR]
+        [--batches B ...]
 
 On a synthetic workload (``shotgun_tpu_torch.utils.synth``; by default the
 no-overlap, error-free one of ``chip_smoke.py``), one line each:
@@ -24,6 +25,11 @@ no-overlap, error-free one of ``chip_smoke.py``), one line each:
   intervals of the trace, so nothing is counted twice), the idle share
   of the stream (1 - busy / wall of the profiled run) and the device
   time by kernel name.
+
+With ``--batches``, after the build, the table and the statistics, only
+``profile_route`` at each batch given (the auto batch's inputs,
+``routes.py``): reads/s, device ms a batch, idle share and the peak device
+memory of the route's runs.
 
 The last line is one JSON object of every number above.  ``--out`` keeps
 the Chrome traces and ``key_averages`` tables there.
@@ -189,19 +195,32 @@ def profile_route(ref, fastq: str, device: torch.device, batch: int,
     ``fastq`` at ``batch``: the stream's reads/s (median of ``repeats``),
     the device pipeline alone over the batches uploaded before (ms a
     batch, median of ``repeats``) and, on CUDA, one profiled stream (wall
-    and device busy ms, idle share; None elsewhere)."""
+    and device busy ms, idle share) and the peak device bytes allocated
+    and reserved over these runs, the table included, beside the bytes
+    allocated before them (None elsewhere)."""
     def stream():
         stream_align(ref, fastq, device, batch)
 
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
     chunks = _chunks_on_device(fastq, batch, ref.index.k, device)
     n = sum(int((lengths > 0).sum()) for _, lengths in chunks)
-    prof = (profiled(stream, device, None, "route") if device.type == "cuda"
+    prof = (profiled(stream, device, None, "route") if cuda
             else dict.fromkeys(("wall_ms", "device_busy_ms", "idle_share")))
     device_s = _median_s(lambda: _device_only(ref, chunks, device), repeats, device)
-    return {"reads": n, "stream_reads_per_s": n / _median_s(stream, repeats, device),
-            "device_ms_per_batch": 1e3 * device_s / len(chunks),
-            "wall_ms": prof["wall_ms"], "busy_ms": prof["device_busy_ms"],
-            "idle_share": prof["idle_share"]}
+    out = {"reads": n, "stream_reads_per_s": n / _median_s(stream, repeats, device),
+           "device_ms_per_batch": 1e3 * device_s / len(chunks),
+           "wall_ms": prof["wall_ms"], "busy_ms": prof["device_busy_ms"],
+           "idle_share": prof["idle_share"], "base_allocated_bytes": None,
+           "peak_allocated_bytes": None, "peak_reserved_bytes": None}
+    if cuda:
+        out.update(base_allocated_bytes=base,
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated(device),
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved(device))
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -225,6 +244,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--fill-threads", type=int, nargs="*", default=[],
                     help="extra native fill thread counts to time the stream at")
     ap.add_argument("--out", default=None, help="directory for traces and tables")
+    ap.add_argument("--batches", type=int, nargs="*", default=[],
+                    help="only the route's measures (profile_route) at each batch")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -289,6 +310,17 @@ def _run(args, device, genomes, work, res: dict, say) -> None:
         stats = stream_align(ref, fastq, device, args.batch).get_summary()["Statistics"]
         res["statistics"] = stats
         say(f"workload statistics: {stats}")
+        if args.batches:
+            res["by_batch"] = {}
+            for b in args.batches:
+                r = res["by_batch"][b] = profile_route(ref, fastq, device, b, args.repeats)
+                say(f"B={b}: stream {r['stream_reads_per_s']:.0f} reads/s "
+                    f"({r['reads'] / r['stream_reads_per_s']:.4f} s), device pipeline "
+                    f"alone {r['device_ms_per_batch']:.3f} ms a batch, idle share "
+                    f"{r['idle_share']}, peak device memory {r['peak_allocated_bytes']} B "
+                    f"allocated, {r['peak_reserved_bytes']} B reserved "
+                    f"({r['base_allocated_bytes']} B before)")
+            return
 
         def stream(batch, mkq=None):
             return lambda: stream_align(ref, fastq, device, batch, mkq)

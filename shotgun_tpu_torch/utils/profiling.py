@@ -17,7 +17,7 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Iterator
 
-__all__ = ["PROFILER", "PhaseStat", "Profiler", "phase"]
+__all__ = ["PROFILER", "PhaseStat", "Profiler", "parse_report", "phase"]
 
 
 @dataclass
@@ -63,6 +63,17 @@ class Profiler:
                 f"{name:20s} {st.seconds * 1e3:10.1f} ms  x{st.calls}{rate}",
                 file=stream,
             )
+
+
+def parse_report(text: str) -> dict:
+    """{phase: seconds} of the ``Profiler.report`` in ``text`` (a CLI
+    run's stderr with ``--profile``)."""
+    stages = {}
+    for line in text.split("=== profile ===", 1)[1].splitlines():
+        fields = line.split()
+        if len(fields) >= 3 and fields[2] == "ms":
+            stages[fields[0]] = float(fields[1]) / 1e3
+    return stages
 
 
 #: process-global profiler used by the CLI
