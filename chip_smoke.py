@@ -7,7 +7,9 @@ Phases, one line each:
   1. device: the card's name and its power limit (nvidia-smi), and the
      route and size values in effect on it (``routes.device_routes``:
      budget, device-build window, auto crossover, auto batch) with where
-     each comes from;
+     each comes from, and the probe's slot limit: the keys above which
+     ``auto`` takes the sort join instead of the 16-slot table, and an
+     explicit ``hash16`` or ``hash`` raises;
   2. build: the CUDA kernels from shotgun_tpu_torch/ops/kernels/csrc with
      nvcc, and the port's native host library (g++, build/host/), at
      once, timed; the loaded native library must be the port's;
@@ -27,10 +29,12 @@ Phases, one line each:
      than a tile, each mode) and H2 at its own (4 and 16 slots, stashes of
      0, 1 and 64 rows, 1 to 257 probes, keys in the first and last slot,
      in the first and last bucket, twice in a row and in the stash, and
-     each batch with one probe more), and H1's multi-word composition
-     (``encode_words``: H1 at k = 31 and at k mod 31, sliced and summed)
-     at k in WORD_KS on the main path's batch and at ragged shapes: exact
-     equality, and the time of each (the composition at k = 75) beside its
+     each batch with one probe more), and H3 (``encode_words``, multi-word
+     keys) at every k of WORD_KS on the main path's batch and on ragged
+     rows (a row longer than a tile among them), at k = L, and at
+     k in H3_LONG_KS (1000 to 5000) on rows of 1024 to 5120 bases, keys
+     only and with sums, one H3 launch and no H1 launch a call: exact
+     equality, and the time of each (H3 at k = 75 and 150) beside its
      plain version, its bytes and its byte bound at 3.35 TB/s;
   5. the main path: `-t dumpalign -g -k 31 --reads` through the port's CLI,
      in process, on 48 random 1 Mbp genomes (about 48M distinct 31-mers,
@@ -58,7 +62,7 @@ Phases, one line each:
      also the 3 dumpref cases and the corpus through reference -> align ->
      dumpalign -a, which must print the plain case; then the 4 runlog
      dumpalign cases at k = 75 and 150 (multi-word keys: the word sort
-     join, H1 launched and H2 not);
+     join, H3 launched, H1 and H2 not);
   8. the rest of the CLI at size, in the directory of phases 5 and 6:
      a. the strain panel: -t reference (host build, .kdb saved);
         dumpref -r of that file and dumpref -g, each to a file, equal
@@ -87,8 +91,8 @@ Phases, one line each:
      panel of phase 6 (host build, word sort join): once on phase 6's reads
      (all 'I'), and once on the same reads with random qualities (from
      --seed, raw bytes uniform in WORD_QUAL) and --min-kmer-quality
-     WORD_MKQ, which filters about half the windows: H1 launched and H2
-     not, the statistics sum to the reads with unique and ambiguous reads
+     WORD_MKQ, which filters about half the windows: H3 launched once a
+     batch, H1 and H2 not, the statistics sum to the reads with unique and ambiguous reads
      both present, the gated run's filtered_quality_kmers equal to the
      windows whose quality sum numpy finds below the gate, and its mapped
      counts other than the ungated run's; then reference -k 75 -> align
@@ -160,7 +164,7 @@ Phases, one line each:
         build beside 12a's CLI db_build_device); the host's RAM and the
         free disk (P12_DISK needed) first;
      c. part b: k = 75 at 16.8M keys, the sharded probe on a 1 x 1 mesh
-        equal to the unsharded one.
+        equal to the unsharded one (H3 once a batch, H1 and H2 not).
      Each stage's wall, peak device memory, peak resident memory of this
      process (and of 12b's child, sampled from outside), and kernel
      launches.
@@ -185,8 +189,11 @@ Kernel H1 (encode_window) replaces two TPU kernels, the rolling encode and
 the quality sums, in one launch; its entry gives the time of each mode,
 and its launch count is that of every H1 launch on the main path (the
 device build's window encode and the batches, with the MKQ gate, so keys
-and sums together); each timed mode carries its own main-path launches,
-and the multi-word mode the H1 launches of phase 9's MKQ run, its path.
+and sums together); each timed mode carries its own main-path launches.
+Kernel H3 (encode_words) replaces the quality sums at k > 31 with the
+multi-word encode in front of them; its path is phase 9's MKQ run (k =
+75), whose H3 launches are its count, and each of its modes carries that
+run's launches of its mode.
 Kernel H2's entry likewise gives the 16-slot table (the main path's) and
 the 4-slot one (launched on the `hash` routes) as two modes.  Phase 12
 adds a mode to each: H1 on the 100 Mbp genome row and H2 on its 2^25-bucket
@@ -195,8 +202,8 @@ Each kernel's launches on every path (the main path, the strain-panel
 routes, the later phases' runs, phase 11's mesh paths, phase 12's
 stages and the staged batches of phase 13's bench runs, each counted from
 0) are listed too.  No single
-PyTorch call computes either kernel's function, so ``library_ms`` is
-null, with the reason beside it.
+PyTorch call computes any kernel's function, so ``library_ms`` is null,
+with the reason beside it.
 """
 
 from __future__ import annotations
@@ -255,10 +262,13 @@ EXT_LEN = 20_000
 H2_EDGE_N = (1, 31, 32, 33, 255, 257)
 #: an empty slot's set id in a hash table row
 H2_EMPTY = np.uint32(0xFFFFFFFF)
-#: multi-word keys: the k of H1's composition checks, the timed k and the
-#: k of phase 9
-WORD_KS = (32, 62, 64, 75, 93, 150)
+#: multi-word keys: the k of H3's checks, the timed k (and the second
+#: timed one) and the k of phase 9; H3's long keys, each on rows of
+#: 1024 to 5120 bases
+WORD_KS = (32, 35, 62, 63, 64, 75, 93, 150)
 K_WORDS = 75
+K_WORDS_LONG = 150
+H3_LONG_KS = (1000, 1024, 4100, 5000)
 #: phase 9's gated run: raw quality bytes uniform in WORD_QUAL (mean 53),
 #: and an MKQ gate at that mean, so about half the 75-base windows fail it
 WORD_QUAL = (33, 73)
@@ -291,6 +301,8 @@ def routes_line(device) -> str:
 
     from shotgun_tpu_torch import routes
 
+    from shotgun_tpu_torch.index.hashtable import STASH_POS_BASE, slot_limit_keys
+
     r = routes.device_routes(device)
     total = torch.cuda.get_device_properties(device).total_memory
     procs = routes.procs_per_card(device.index)
@@ -300,25 +312,49 @@ def routes_line(device) -> str:
             "max - %d B of stream (routes.card_routes); device-build window %d-%d bases "
             "(CARD_DEVICE_BUILD_MIN/_MAX); auto crossover above %d distinct k-mers "
             "(CARD_AUTO_HASH_MIN_KEYS); auto batch %d for every input (CARD_BATCH); off a "
-            "card, the JAX package's %s" % (
+            "card, the JAX package's %s; on every device the probe's slot limit %#x: "
+            "auto takes the sort join above %d distinct k-mers (a 16-slot table past it), "
+            "and an explicit hash16 above it, or hash above %d, raises "
+            "(index/hashtable.py slot_limit_keys)" % (
                 r.hash_budget, total, routes.RESERVED_PER_ALLOCATED, procs,
                 routes.ROW_BYTES_PER_BASE, routes.STREAM_BYTES, r.device_build_min,
                 r.device_build_max, r.auto_hash_min_keys, r.auto_batch(N_READS),
-                routes.JAX_ROUTES))
+                routes.JAX_ROUTES, STASH_POS_BASE, slot_limit_keys(16),
+                slot_limit_keys(4)))
+
+
+#: the kernels' names, as in the kernels line
+KERNELS = ("encode_window", "encode_words", "hash_probe")
+#: the kernels of k <= 31 (the main path's) and of k > 31
+K31_KERNELS = ("encode_window", "hash_probe")
 
 
 def reset_launches() -> None:
-    from shotgun_tpu_torch.ops.encode import encode_window
+    """Every kernel's launch count, and its count by mode, set to 0."""
+    from shotgun_tpu_torch.ops.encode import encode_window, encode_words
     from shotgun_tpu_torch.ops.probe import hash_probe
 
-    encode_window.launches = hash_probe.launches = 0
+    for kernel in (encode_window, encode_words, hash_probe):
+        kernel.launches = 0
+        kernel.launches_by_mode.clear()
 
 
 def read_launches() -> dict:
-    from shotgun_tpu_torch.ops.encode import encode_window
+    from shotgun_tpu_torch.ops.encode import encode_window, encode_words
     from shotgun_tpu_torch.ops.probe import hash_probe
 
-    return {"encode_window": encode_window.launches, "hash_probe": hash_probe.launches}
+    return {"encode_window": encode_window.launches, "encode_words": encode_words.launches,
+            "hash_probe": hash_probe.launches}
+
+
+def check_word_launches(launches: dict, what: str, batches: int = 0) -> None:
+    """A run of multi-word keys launched H3 (``batches`` times, when
+    given) and neither H1 nor H2."""
+    h3 = launches["encode_words"]
+    if (h3 <= 0 or (batches and h3 != batches) or launches["encode_window"] != 0
+            or launches["hash_probe"] != 0):
+        raise AssertionError(f"{what}: launches {launches}, want H3 "
+                             f"{batches or 'some'}, H1 and H2 none")
 
 
 def max_abs_err(got, want) -> int:
@@ -389,33 +425,60 @@ def h1_edge_checks(rng, device) -> tuple:
     return cases, worst
 
 
-def h1_word_checks(rng, packed_d, qual_d, device) -> tuple:
-    """H1's multi-word composition (``encode_words`` on the card) against
-    ``encode_words_plain``, keys only and with sums, at every k of WORD_KS:
-    on the main path's batch, and on 1 and 7 rows of ceil(k / 4), + 1, + 3
-    and 41 packed bytes and one row a tile long.  (cases, max |err|)."""
+def h3_checks(rng, packed_d, qual_d, device) -> tuple:
+    """H3 (``encode_words`` on the card at k > 31) against
+    ``encode_words_plain``, keys only and with sums: at every k of WORD_KS
+    on the main path's batch, on 1 and 7 rows of ceil(k / 4), + 1, + 3 and
+    41 packed bytes and on one row a tile and a few windows long; at k = L
+    on 1 and 7 rows of 40 packed bytes and 300 of 260; at each k of
+    H3_LONG_KS on 7 rows of 1024 bases, 1 of 2048 and 3 of 5120 where the
+    k fits, and at k = L.  Rows are zero past a random length, as the
+    native fill pads them.  Every call launches H3 once and H1 never.
+    (cases, max |err|)."""
     import torch
 
-    from shotgun_tpu_torch.ops.encode import H1_SPAN, encode_words, encode_words_plain
+    from shotgun_tpu_torch.ops.encode import (
+        H3_SPAN,
+        encode_window,
+        encode_words,
+        encode_words_plain,
+    )
 
     def flat(out):
         words, sums = out
         return list(words) + ([sums] if sums is not None else [])
 
-    cases, worst = 0, 0
+    def ragged(rows, width):
+        return (padded_rows(rng, device, rows, width, 0, 256),
+                padded_rows(rng, device, rows, 4 * width, 33, 127))
+
+    inputs = []  # (k, packed, qual)
     for k in WORD_KS:
         first = -(-k // 4)
-        inputs = [(packed_d, qual_d)]
+        inputs.append((k, packed_d, qual_d))
         for rows, width in [(r, w) for r in (1, 7) for w in (first, first + 1, first + 3, 41)
-                            ] + [(1, (H1_SPAN - 64 + k + 3) // 4)]:
-            inputs.append((padded_rows(rng, device, rows, width, 0, 256),
-                           padded_rows(rng, device, rows, 4 * width, 33, 127)))
-        for packed, qual in inputs:
-            for q in (None, qual):
-                worst = max(worst, max_abs_err(flat(encode_words(packed, k, q)),
-                                               flat(encode_words_plain(packed, k, q))))
-                cases += 1
+                            ] + [(1, (H3_SPAN - 128 + k + 3) // 4)]:
+            if 4 * width >= k:
+                inputs.append((k, *ragged(rows, width)))
+    for rows, width in ((1, 40), (7, 40), (300, 260)):
+        inputs.append((4 * width, *ragged(rows, width)))
+    for k in H3_LONG_KS:
+        for rows, length in ((7, 1024), (1, 2048), (3, 5120)):
+            if length >= k:
+                inputs.append((k, *ragged(rows, length // 4)))
+        inputs.append((k, *ragged(5, -(-k // 4))))
+    before = (encode_words.launches, encode_window.launches)
+    cases, worst = 0, 0
+    for k, packed, qual in inputs:
+        for q in (None, qual):
+            worst = max(worst, max_abs_err(flat(encode_words(packed, k, q)),
+                                           flat(encode_words_plain(packed, k, q))))
+            cases += 1
     torch.cuda.synchronize()
+    if (encode_words.launches - before[0], encode_window.launches - before[1]) != (cases, 0):
+        raise AssertionError(f"H3 checks: {cases} calls launched H3 "
+                             f"{encode_words.launches - before[0]} times and H1 "
+                             f"{encode_window.launches - before[1]} times")
     return cases, worst
 
 
@@ -539,14 +602,13 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
         encode_words,
         encode_words_plain,
         pack_codes_2bit,
-        word_spans,
     )
     from shotgun_tpu_torch.ops.probe import (
         STASH_POS_BASE,
         hash_probe,
         hash_probe_plain,
     )
-    from shotgun_tpu_torch.tools.bench_encode import bound_ms, h1_bytes
+    from shotgun_tpu_torch.tools.bench_encode import bound_ms, h1_bytes, h3_bytes
     from shotgun_tpu_torch.tools.bench_probe import probe_case
 
     n_edge, err_edge = h1_edge_checks(rng, device)
@@ -571,12 +633,12 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
     err_enc = max_abs_err([keys, row_keys], [keys_p, row_keys_p])
     err_qual = max_abs_err(kq, kq_p)
     del row_keys, row_keys_p, kq, kq_p
-    n_word, err_word = h1_word_checks(rng, packed_d, qual_d, device)
+    n_word, err_word = h3_checks(rng, packed_d, qual_d, device)
 
     if max(err_edge, err_enc, err_qual, err_h2_edge, err_word) != 0:
         raise AssertionError(f"kernel != plain: encode edges {err_edge}, encode "
                              f"{err_enc}, encode+qual {err_qual}, probe edges "
-                             f"{err_h2_edge}, multi-word encode {err_word}")
+                             f"{err_h2_edge}, H3 words {err_word}")
 
     # H2: the device-assembled 16-slot table of phase 3 and the strain
     # panel's 4-slot table, each probed with one batch of its reads (the
@@ -621,10 +683,6 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
             "stash_hits": stash_hits})
     del tab4, case, args
     nwin = LPAD - K + 1
-    # the multi-word composition: packed codes and quality in, the words
-    # (int64) and sums (int32) of every window out
-    wwin, nwords = LPAD - K_WORDS + 1, len(word_spans(K_WORDS))
-    word_out = b * wwin * (8 * nwords + 4)
     h1_modes = [
         # (shape, mode, bytes, kernel, plain, output bytes)
         (f"[{b}, {LPAD}]", "keys+sums", h1_bytes(b, LPAD // 4, K, True, True),
@@ -637,20 +695,28 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
          h1_bytes(1, row_d.shape[1], K, True, False),
          lambda: encode_window(row_d, K), lambda: encode_window_plain(row_d, K),
          (row_d.shape[1] * 4 - K + 1) * 8),
-        (f"[{b}, {LPAD}]", f"words k={K_WORDS}, keys+sums",
-         b * (LPAD // 4 + LPAD) + word_out,
-         lambda: encode_words(packed_d, K_WORDS, qual_d),
-         lambda: encode_words_plain(packed_d, K_WORDS, qual_d), word_out),
     ]
-    modes = []
-    for shape, mode, nbytes, fn, plain, out_bytes in h1_modes:
-        # a composition call costs the host far more than one H1 launch:
-        # 32 of them are queued within the sleep kernel's ~10 ms, so its
-        # loop stays device-paced
-        ms, plain_ms = timed(fn, plain, out_bytes, 32 if mode.startswith("words") else 200)
-        modes.append({"shape": shape, "mode": mode, "bytes": nbytes,
-                      "bound_ms": bound_ms(nbytes), "bound_share": bound_ms(nbytes) / ms,
-                      "ms": ms, "plain_ms": plain_ms, "library_ms": None})
+    # H3: packed codes (and quality) in, the words (int64) and sums (int32)
+    # of every window out; the mode names are its launches_by_mode keys
+    h3_modes = []
+    for k, q in ((K_WORDS, qual_d), (K_WORDS, None), (K_WORDS_LONG, qual_d)):
+        nbytes = h3_bytes(b, LPAD // 4, k, q is not None)
+        mode = f"k={k}, " + ("keys+sums" if q is not None else "keys")
+        h3_modes.append((f"[{b}, {LPAD}]", mode, nbytes,
+                         lambda k=k, q=q: encode_words(packed_d, k, q),
+                         lambda k=k, q=q: encode_words_plain(packed_d, k, q),
+                         nbytes - b * (LPAD // 4) - b * LPAD * (q is not None)))
+
+    def timed_modes(cases):
+        modes = []
+        for shape, mode, nbytes, fn, plain, out_bytes in cases:
+            ms, plain_ms = timed(fn, plain, out_bytes, 200)
+            modes.append({"shape": shape, "mode": mode, "bytes": nbytes,
+                          "bound_ms": bound_ms(nbytes), "bound_share": bound_ms(nbytes) / ms,
+                          "ms": ms, "plain_ms": plain_ms, "library_ms": None})
+        return modes
+
+    modes, word_modes = timed_modes(h1_modes), timed_modes(h3_modes)
     no_library = ("none: no single PyTorch call computes this function (%s); "
                   "the plain version takes %s")
     main_mode = modes[0]
@@ -658,7 +724,7 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
         {"name": "encode_window", "route": "cuda",
          "source": f"{CSRC}/encode_window.cu", "replaces": f"{PALLAS}:74",
          "also_replaces": f"{PALLAS}:107",
-         "max_abs_err": max(err_edge, err_enc, err_qual, err_word),
+         "max_abs_err": max(err_edge, err_enc, err_qual),
          "ms": main_mode["ms"], "plain_ms": main_mode["plain_ms"],
          "bound_ms": main_mode["bound_ms"], "bound_by": "bytes",
          "bound_share": main_mode["bound_share"], "bytes": main_mode["bytes"],
@@ -666,7 +732,19 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
          "library_reason": no_library % (
              "2-bit unpack, k-mer encode and window quality sums in one pass",
              "an unpack, k shift-or steps and a cumsum"),
-         "edge_cases_checked": n_edge, "word_cases_checked": n_word, "modes": modes},
+         "edge_cases_checked": n_edge, "modes": modes},
+        {"name": "encode_words", "route": "cuda",
+         "source": f"{CSRC}/encode_words.cu", "replaces": f"{PALLAS}:107",
+         "replaces_at": "k > 31, with the multi-word encode in front of it "
+                        "(shotgun_tpu/ops/encode.py:125 rolling_encode_words_jnp)",
+         "max_abs_err": err_word,
+         **{key: word_modes[0][key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_share", "bytes")},
+         "bound_by": "bytes", "library_ms": None,
+         "library_reason": no_library % (
+             "2-bit unpack, multi-word k-mer encode and window quality sums in one pass",
+             "an unpack, k shift-or steps a word and a cumsum"),
+         "cases_checked": n_word, "modes": word_modes},
         {"name": "hash_probe", "route": "cuda",
          "source": f"{CSRC}/hash_probe.cu", "replaces": f"{PALLAS}:162",
          "max_abs_err": max(err_h2_edge, *(m["max_abs_err"] for m in h2_modes)),
@@ -681,15 +759,16 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
     say("phase 4 kernels == plain (integer outputs, tolerance 0): H1 at %d edge "
         "cases (k 1/2/15/31; 1, 7, 32768 rows of 8/40/41 packed bytes; a row one "
         "tile long; keys, sums, both) and at B=%d L=%d k=%d, and on the genome as "
-        "one row of %d bases; H1's multi-word composition at %d cases (k %s; the "
-        "batch, 1 and 7 ragged rows, a row a tile long; keys, keys and sums); "
+        "one row of %d bases; H3 at %d cases, one H3 launch and no H1 launch each (k %s "
+        "on the batch, 1 and 7 ragged rows and a row a tile long; k = L; k %s on rows of "
+        "1024 to 5120 bases; keys, keys and sums); "
         "H2 at %d edge cases (4 and 16 slots; stash 0/1/64 "
         "rows; n %s) and on one batch of B=%d reads (and one window more) on the "
         "device-assembled 16-slot table of phase 3 and on the strain panel's "
         "4-slot table (host build %.3f s; %s). Times (launches queued behind "
         "a sleep kernel, outputs rotated past the L2): %s" % (
             n_edge, b, LPAD, K, row_d.shape[1] * 4, n_word,
-            "/".join(map(str, WORD_KS)), n_h2_edge,
+            "/".join(map(str, WORD_KS)), "/".join(map(str, H3_LONG_KS)), n_h2_edge,
             "/".join(map(str, H2_EDGE_N)), b, table4_s, asm4,
             "; ".join("%s %s %s %.4f ms vs plain %.4f ms, %d B, bound %.4f ms, "
                       "%.1f%% of it%s" % (
@@ -698,7 +777,8 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
                           ", %d distinct buckets read, stash %d rows, %d stash hits" % (
                               m["distinct_buckets"], m["stash_rows"], m["stash_hits"])
                           if kernel == "H2" else "")
-                      for kernel, ms_list in (("H1", modes), ("H2", h2_modes))
+                      for kernel, ms_list in (("H1", modes), ("H3", word_modes),
+                                              ("H2", h2_modes))
                       for m in ms_list)))
     return results
 
@@ -727,14 +807,12 @@ def run_cli(argv, env=None, out_path=None) -> str:
 
 
 def counted_run(argv, env=None, out_path=None, stream=True):
-    """One profiled CLI run with every kernel's launch count set to 0 just
-    before it: (stdout, {stage: seconds}, {kernel: launches}, wall s, peak
-    device bytes).  ``stream``: the run aligns reads, and must take the
+    """One profiled CLI run with every kernel's launch count (and count by
+    mode) set to 0 just before it: (stdout, {stage: seconds}, {kernel:
+    launches}, wall s, peak device bytes).  ``stream``: the run aligns reads, and must take the
     stream route."""
     import torch
 
-    from shotgun_tpu_torch.ops.encode import encode_window
-    from shotgun_tpu_torch.ops.probe import hash_probe
     from shotgun_tpu_torch.utils.profiling import PROFILER
 
     torch.cuda.synchronize()
@@ -742,8 +820,6 @@ def counted_run(argv, env=None, out_path=None, stream=True):
     PROFILER.stats.clear()
     PROFILER.enable()
     reset_launches()
-    encode_window.launches_by_mode.clear()
-    hash_probe.launches_by_mode.clear()
     t0 = time.perf_counter()
     out = run_cli(argv + ["--profile"], env, out_path)
     torch.cuda.synchronize()
@@ -886,8 +962,9 @@ def phase_main_path(fa: str, fq: str, gi: np.ndarray) -> tuple:
         got = summary["Summary"].get(f"genome_{g}")
         if got != {"unique_reads": int(counts[g]), "ambiguous_reads": 0}:
             raise AssertionError(f"genome_{g}: {got}, want {counts[g]} unique")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched on the main path: {launches}")
+    if min(launches[n] for n in K31_KERNELS) <= 0 or launches["encode_words"] != 0:
+        raise AssertionError(f"a kernel never launched on the main path, or H3 did "
+                             f"at k = {K}: {launches}")
     align_s = stages["stream_align"]
     say("phase 5 main path: %d reads, %d genomes x %d bp, k=%d, device build + "
         "hash16: wall %.3f s (fasta %.3f s, db build on the device %.3f s, "
@@ -965,22 +1042,17 @@ def phase_goldens(tmp: str) -> None:
         if run_cli(["-t", "dumpalign", "-a", aln], env) != golden("plain"):
             raise AssertionError(f"reference -> align -> dumpalign -a ({route}): "
                                  "output differs from the plain case")
-    from shotgun_tpu_torch.ops.encode import encode_window
-    from shotgun_tpu_torch.ops.probe import hash_probe
-
     with open(os.path.join(RUNLOG, "manifest.json")) as fh:
         runlog = json.load(fh)
     data = os.path.join(RUNLOG, "data") + "/"
     for case in RUNLOG_WORD_CASES:
         argv = [a.replace("data/", data) for a in runlog[case]["args"]]
-        encode_window.launches = hash_probe.launches = 0
+        reset_launches()
         out = run_cli(argv + ["--batch-size", "512"])
         with gzip.open(os.path.join(RUNLOG, f"{case}.out.gz"), "rt") as fh:
             if out != fh.read():
                 raise AssertionError(f"runlog golden {case}: output differs")
-        if encode_window.launches <= 0 or hash_probe.launches != 0:
-            raise AssertionError(f"runlog golden {case}: H1 {encode_window.launches} "
-                                 f"launches, H2 {hash_probe.launches}")
+        check_word_launches(read_launches(), f"runlog golden {case}")
     say(f"phase 7 goldens: {len(GOLDEN_CASES)} dumpalign and {len(DUMPREF_CASES)} "
         "dumpref cases byte-equal on the card, and reference -> align -> "
         "dumpalign -a equal to the plain case, on each route: "
@@ -1097,8 +1169,9 @@ def phase_main_files(tmp: str, fa: str, fq: str, gi: np.ndarray, device) -> dict
         ["-t", "reference", "-g", fa, "-k", str(K), "-r", kdb], stream=False)
     _, st, launches, wall, peak = counted_run(
         ["-t", "align", "-r", kdb, "--reads", fq, "-a", aln])
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"48 Mbp align: a kernel never launched: {launches}")
+    if min(launches[n] for n in K31_KERNELS) <= 0 or launches["encode_words"] != 0:
+        raise AssertionError(f"48 Mbp align: a kernel never launched, or H3 did: "
+                             f"{launches}")
     if "hash_table_device" not in st or "hash_table_host" in st:
         raise AssertionError(f"48 Mbp align: the table was not assembled on the card: {st}")
     # the same .kdb's 16-slot table both ways: the host builder (the route
@@ -1213,8 +1286,14 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
     the CLI, held against its own invariants, the gate's count from numpy,
     the file round trip and the CPU; ``fq_q`` holds ``fq``'s reads with
     the qualities ``qual`` and ``fq_q_head`` its first BATCH reads.
-    Returns each run's kernel launches."""
+    Returns each run's kernel launches, and the MKQ run's H3 launches by
+    mode."""
+    from shotgun_tpu_torch.ops.encode import encode_words
+
     k = str(K_WORDS)
+    import torch
+
+    batches = -(-N_READS // auto_batch(N_READS, torch.device("cuda", 0)))
     gate = ["--min-kmer-quality", str(WORD_MKQ)]
     runs = (("no gate", fq, []), (f"random quality, MKQ {WORD_MKQ}", fq_q, gate))
     outs, parts, by_path = [], [], {}
@@ -1225,8 +1304,8 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
         # and the host builds
         if "db_build" not in st or st.get("db_build_device", 0.0) > 0.1:
             raise AssertionError(f"k={k} {name}: not the host build: {st}")
-        if launches["encode_window"] <= 0 or launches["hash_probe"] != 0:
-            raise AssertionError(f"k={k} {name}: launches {launches}")
+        check_word_launches(launches, f"k={k} {name}", batches)
+        by_mode = dict(encode_words.launches_by_mode)
         stats = json.loads(out)["Statistics"]
         mapped = [stats[key] for key in ("unique_mapped_reads", "ambiguous_mapped_reads",
                                          "unmapped_reads")]
@@ -1254,6 +1333,7 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
         ["-t", "reference", "-g", fa, "-k", k, "-r", kdb], stream=False)
     _, st, launches, wall, peak = counted_run(["-t", "align", "-r", kdb, "--reads", fq,
                                                "-a", aln])
+    check_word_launches(launches, f"k={k} align -r", batches)
     by_path[f"k={k} strains align -r"] = launches
     direct, dst, _, _, _ = counted_run(["-t", "dumpalign", "-r", kdb, "--reads", fq])
     if run_cli(["-t", "dumpalign", "-a", aln]) != direct:
@@ -1286,10 +1366,11 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
     os.remove(kdb)
     os.remove(aln)
     say("phase 9 multi-word keys, k=%s on the strain panel (%d reads): host build + "
-        "word sort join, H1 launched and H2 not, statistics plausible, the MKQ gate's "
+        "word sort join, H3 launched once a batch (%d), H1 and H2 not, statistics "
+        "plausible, the MKQ gate's "
         "count == numpy's and its reads moved, dumpalign -a == -r --reads == -g; %s" % (
-            k, N_READS, "; ".join(parts)))
-    return by_path
+            k, N_READS, batches, "; ".join(parts)))
+    return by_path, by_mode
 
 
 def phase_packed() -> dict:
@@ -1299,8 +1380,6 @@ def phase_packed() -> dict:
     from shotgun_tpu_torch.aligner import PseudoAlignment, ReadMappingType
     from shotgun_tpu_torch.io.data_file import FASTAFile, FASTAQFile, open_fastq_stream
     from shotgun_tpu_torch.io.packing import pack_reads
-    from shotgun_tpu_torch.ops.encode import encode_window
-    from shotgun_tpu_torch.ops.probe import hash_probe
     from shotgun_tpu_torch.reference import PROBE_ENV, KmerReference
 
     data = os.path.join(GOLDEN, "data")
@@ -1315,7 +1394,7 @@ def phase_packed() -> dict:
             runs = []
             for packed in (False, True):
                 aln = PseudoAlignment(ref)
-                encode_window.launches = hash_probe.launches = 0
+                reset_launches()
                 if packed:
                     aln.align_packed_reads(batch, batch_size=16)
                 else:
@@ -1326,13 +1405,15 @@ def phase_packed() -> dict:
         finally:
             os.environ.pop(PROBE_ENV)
         name = f"k={k} {route}"
-        launches = {"encode_window": encode_window.launches,
-                    "hash_probe": hash_probe.launches}
+        launches = read_launches()
         if runs[0] != runs[1]:
             raise AssertionError(f"align_packed_reads ({name}) != align_stream")
         if k == 11 and runs[1][0] != json.dumps(json.loads(golden("plain"))):
             raise AssertionError(f"align_packed_reads ({name}): not the plain case")
-        if launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed:
+        if k > 31:
+            check_word_launches(launches, f"align_packed_reads ({name})")
+        elif (launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed
+              or launches["encode_words"] != 0):
             raise AssertionError(f"align_packed_reads ({name}): launches {launches}")
         by_path[f"align_packed_reads, {name}"] = launches
     say("phase 10 align_packed_reads == align_stream (summary and read store) on the "
@@ -1346,12 +1427,13 @@ def phase_packed() -> dict:
 CLI_CHILD = r"""
 import json, sys
 from shotgun_tpu_torch.cli import main
-from shotgun_tpu_torch.ops.encode import encode_window
+from shotgun_tpu_torch.ops.encode import encode_window, encode_words
 from shotgun_tpu_torch.ops.probe import hash_probe
 try:
     main(sys.argv[1:])
 finally:
     print("launches " + json.dumps({"encode_window": encode_window.launches,
+                                    "encode_words": encode_words.launches,
                                     "hash_probe": hash_probe.launches}), file=sys.stderr)
 """
 
@@ -1795,7 +1877,7 @@ TABLE_AXIS_CHILD = r"""
 import json, os, sys, threading, time
 import torch
 from shotgun_tpu_torch.aligner import PseudoAlignment
-from shotgun_tpu_torch.ops.encode import encode_window
+from shotgun_tpu_torch.ops.encode import encode_window, encode_words
 from shotgun_tpu_torch.ops.probe import hash_probe
 from shotgun_tpu_torch.parallel import distributed, table_sharded
 from shotgun_tpu_torch.reference import KmerReference
@@ -1835,7 +1917,7 @@ try:
     table_sharded._all_reduce = counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    encode_window.launches = hash_probe.launches = 0
+    encode_window.launches = encode_words.launches = hash_probe.launches = 0
     aln = PseudoAlignment(ref, dev)
     t0 = time.perf_counter()
     step, tabs = aln.mesh_probe_tables(mesh)
@@ -1853,6 +1935,7 @@ try:
         "reads": reads.num_reads, "peak_device": torch.cuda.max_memory_allocated(),
         "peak_rss": peak_rss[0] or None,
         "launches": {"encode_window": encode_window.launches,
+                     "encode_words": encode_words.launches,
                      "hash_probe": hash_probe.launches},
         "merges": len(merges), "merge_bytes": sorted({b for b, _ in merges}),
         "merge_s": sum(t for _, t in merges), "summary": aln.get_summary()}))
@@ -1949,7 +2032,7 @@ def phase_100mbp_bulk(tmp: str, device, p12a: dict) -> dict:
         raise AssertionError(f"12b: {a['num_kmers']} k-mers, route {a['table']['method']}")
     if a["table"]["shape"][0] != P12_BUCKETS:
         raise AssertionError(f"12b: table of {a['table']['shape']} buckets")
-    if min(by_path[lib_path].values()) <= 0:
+    if min(by_path[lib_path][n] for n in K31_KERNELS) <= 0:
         raise AssertionError(f"12b: launches {by_path}")
     lib_wall = time.perf_counter() - t_phase
     term = index_table_bytes(a["num_kmers"], a["num_sets"], 16, P12_BUCKETS)
@@ -2038,8 +2121,8 @@ def phase_100mbp_words(device) -> dict:
     reset_launches()
     b = bulk_proof.part_b(device, log=lambda msg: say("  12c " + msg))
     launches = read_launches()
-    if launches["encode_window"] <= 0 or launches["hash_probe"] != 0:
-        raise AssertionError(f"12c: launches {launches}")
+    # one batch sharded and one unsharded
+    check_word_launches(launches, "12c", 2)
     say("phase 12c k=75 at %d keys (%.3f s): host build %.3f s, sharded table %d B "
         "uploaded in %.3f s, sharded probe %.3f s; sharded == unsharded in every field; "
         "launches %s, peak device memory %d B; host peak RSS %d B" % (
@@ -2114,8 +2197,9 @@ def say_bench(label: str, head: dict, wall: float) -> None:
         f"{extra['db_build_mbp_per_sec']:.3f} Mbp/s, device build "
         f"{extra['db_build_device_mbp_per_sec']:.3f} Mbp/s; H1 "
         f"{kern['encode_window']['ms']:.4f} ms ({kern['encode_window']['bound_share']:.3f} "
-        f"of its bound), H2 {kern['hash_probe']['ms']:.4f} ms "
-        f"({kern['hash_probe']['bound_share']:.3f}); stages ms {extra['stage_profile_ms']}, "
+        f"of its bound; plain {kern['encode_window']['plain_ms']:.4f} ms), H2 "
+        f"{kern['hash_probe']['ms']:.4f} ms ({kern['hash_probe']['bound_share']:.3f}; plain "
+        f"{kern['hash_probe']['plain_ms']:.4f} ms); stages ms {extra['stage_profile_ms']}, "
         f"device ms {extra['stage_profile_device_ms']}")
     say(json.dumps(head))
 
@@ -2256,7 +2340,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # 9. multi-word keys at size; 10. the library's packed route
-        words_by_path = phase_words(tmp, sfa, sfq, sqfq, sqfq_head, strain_qual)
+        words_by_path, word_by_mode = phase_words(tmp, sfa, sfq, sqfq, sqfq_head,
+                                                  strain_qual)
         by_path.update(words_by_path)
         torch.cuda.empty_cache()
         by_path.update(phase_packed())
@@ -2282,17 +2367,24 @@ def main() -> int:
     # 13. the port's benchmark and stage profilers, each in a child
     by_path.update(phase_bench())
 
-    word_launches = words_by_path[
-        f"k={K_WORDS} strains dumpalign -g, random quality, MKQ {WORD_MKQ}"]
+    # H3's path is phase 9's MKQ run, the others' the main path
+    word_path = f"k={K_WORDS} strains dumpalign -g, random quality, MKQ {WORD_MKQ}"
+    paths = {"encode_window": (launches, by_mode["encode_window"]),
+             "hash_probe": (launches, by_mode["hash_probe"]),
+             "encode_words": (by_path[word_path], word_by_mode)}
     kernels[0]["modes"].append(h1_100mbp)
-    kernels[1]["modes"].append(h2_100mbp)
+    kernels[2]["modes"].append(h2_100mbp)
     for kr in kernels:
-        kr["launches"] = launches[kr["name"]]
-        kr["launches_by_path"] = {p: n[kr["name"]] for p, n in by_path.items()}
+        count, modes = paths[kr["name"]]
+        kr["path"] = word_path if kr["name"] == "encode_words" else "main path"
+        kr["launches"] = count[kr["name"]]
+        kr["launches_by_path"] = {p: n.get(kr["name"], 0) for p, n in by_path.items()}
         for m in kr["modes"]:
-            m["launches_main_path"] = by_mode[kr["name"]].get(m["mode"], 0)
-            if m["mode"].startswith("words"):
-                m["launches_word_path"] = word_launches[kr["name"]]
+            m["launches_on_its_path"] = modes.get(m["mode"], 0)
+    if [kr["name"] for kr in kernels] != list(KERNELS) or min(
+            kr["launches"] for kr in kernels) <= 0:
+        raise AssertionError("a kernel never launched on its path: "
+                             f"{[(kr['name'], kr['launches']) for kr in kernels]}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

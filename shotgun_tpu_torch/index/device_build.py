@@ -47,7 +47,13 @@ import numpy as np
 import torch
 
 from shotgun_tpu_torch.io import native as _native
-from shotgun_tpu_torch.index.hashtable import STASH_CAP, _TARGET_LAMBDA, _next_pow2
+from shotgun_tpu_torch.index.hashtable import (
+    _TARGET_LAMBDA,
+    STASH_CAP,
+    check_slot_limit,
+    first_buckets as _first_buckets,
+    slots_fit,
+)
 from shotgun_tpu_torch.ops.encode import M32, encode_window, mix32, pack_codes_2bit, split_key
 from shotgun_tpu_torch.ops.probe_sort import host_key_words
 from shotgun_tpu_torch.routes import JAX_ROUTES, device_routes
@@ -329,17 +335,13 @@ def _budget(device: torch.device) -> int:
     return device_routes(device).hash_budget if budget is None else int(budget)
 
 
-def _first_buckets(u: int, slots: int) -> int:
-    """The host builder's first bucket count (``build_probe_table``)."""
-    return _next_pow2(max(int(u / _TARGET_LAMBDA[slots]), 1))
-
-
 def device_hash_table(built: dict
                       ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """(table int32 [nb, 16, 4], stash int32 [<= 64, 4]) on the build's
     device from ``device_build_tables`` output, or None when the table
-    would pass the device's budget (``_budget``: 10 GB off a card) or its
-    stash still overflows after two doublings.  Both are
+    would pass the device's budget (``_budget``: 10 GB off a card) or the
+    probe's slot limit (``index.hashtable.slots_fit``), or its stash still
+    overflows after two doublings.  Both are
     deterministic; a device error raises, and so does a budget that is
     not an integer, as in the JAX package.
 
@@ -352,8 +354,10 @@ def device_hash_table(built: dict
     nb = _first_buckets(rows.n, HASH_SLOTS)
     budget = _budget(keys.device)
     for _ in range(3):
-        # re-checked on every doubling: table + the build's workspace
-        if nb * HASH_SLOTS * 16 + 8 * built["num_windows"] * 4 > budget:
+        # re-checked on every doubling: table + the build's workspace, and
+        # the probe's slot limit
+        if (nb * HASH_SLOTS * 16 + 8 * built["num_windows"] * 4 > budget
+                or not slots_fit(nb, HASH_SLOTS)):
             return None
         placed = _place(rows, nb, HASH_SLOTS, keys.device)
         if placed is not None:
@@ -404,8 +408,9 @@ def index_hash_table(index, slots: int, device: torch.device
 
     None when ``index_table_bytes`` passes ``device``'s budget
     (``_budget``: 10 GB off a card), checked at the first bucket count and
-    on every doubling; the caller then builds the table on the host.  A device
-    error raises."""
+    on every doubling; the caller then builds the table on the host.
+    ``SlotLimitError`` when the table would pass the probe's slot limit, as
+    the host builder raises.  A device error raises."""
     keys = host_key_words(index.kmer_words, index.k)[0]
     sid = np.ascontiguousarray(index.set_id, dtype=np.int32)
     sizes = torch.from_numpy(np.ascontiguousarray(index.set_sizes, dtype=np.int32)).to(device)
@@ -419,6 +424,7 @@ def index_hash_table(index, slots: int, device: torch.device
     nb = _first_buckets(rows.n, slots)
     budget = _budget(device)
     while index_table_bytes(rows.n, index.num_sets, slots, nb) <= budget:
+        check_slot_limit(nb, slots)
         placed = _place(rows, nb, slots, device)
         if placed is not None:
             return placed

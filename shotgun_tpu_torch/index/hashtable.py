@@ -12,6 +12,14 @@ stash would exceed its cap the table doubles and rebuilds.
 Layout: ``table[n_buckets, slots, 4]`` uint32 rows of (key_lo, key_hi,
 set_id, genome_count); empty slots have set_id == EMPTY.  Full 62-bit keys
 are compared, never hashes, so collisions resolve exactly.
+
+The probe numbers a slot ``bucket * slots + s`` in int32 below the stash's
+positions, which start at ``STASH_POS_BASE``, so no table may have more
+slots than that: a build that would pass it raises ``SlotLimitError``
+(where the JAX package's uint32 positions wrap, ``shotgun_tpu/ops/probe.py:125``).
+That is a 16-slot table of more than ``slot_limit_keys(16)`` keys
+(268,435,459) and a 4-slot one of more than ``slot_limit_keys(4)``
+(67,108,864), or one that a stash doubling takes past the limit.
 """
 
 from __future__ import annotations
@@ -25,6 +33,9 @@ from shotgun_tpu_torch.ops.encode import mix32_np
 SLOTS = 4
 EMPTY = np.uint32(0xFFFFFFFF)
 STASH_CAP = 64
+#: a stash hit's slot position is STASH_POS_BASE + its row; table slots
+#: are numbered below it
+STASH_POS_BASE = 0x7FFF0000
 
 #: initial expected keys per bucket by slot width: narrow buckets at low
 #: load for small tables, 16-slot buckets at 4 keys each (64 B/key) so
@@ -46,6 +57,42 @@ def _next_pow2(x: int) -> int:
     return 1 << max(int(x) - 1, 1).bit_length()
 
 
+class SlotLimitError(ValueError):
+    """A table would have more slots than the probe can number."""
+
+
+def first_buckets(u: int, slots: int) -> int:
+    """``build_probe_table``'s first bucket count for ``u`` keys."""
+    return _next_pow2(max(int(u / _TARGET_LAMBDA.get(slots, 1.0)), 1))
+
+
+def slots_fit(n_buckets: int, slots: int) -> bool:
+    """Whether every slot of the table has a position below the stash's."""
+    return n_buckets * slots <= STASH_POS_BASE
+
+
+def check_slot_limit(n_buckets: int, slots: int) -> None:
+    """Raise ``SlotLimitError`` unless ``slots_fit``."""
+    if not slots_fit(n_buckets, slots):
+        raise SlotLimitError(
+            f"a {slots}-slot hash table of {n_buckets} buckets has "
+            f"{n_buckets * slots} slots, more than the probe numbers "
+            f"({STASH_POS_BASE:#x}); use the sort join (SHOTGUN_TPU_PROBE=sort)")
+
+
+def slot_limit_keys(slots: int) -> int:
+    """The most keys whose first table (``first_buckets``) fits the
+    probe's slot limit."""
+    lo, hi = 1, 1 << 40  # first_buckets(lo) fits, first_buckets(hi) does not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if slots_fit(first_buckets(mid, slots), slots):
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
 def build_probe_table(
     kmer_lo: np.ndarray,
     kmer_hi: np.ndarray,
@@ -55,11 +102,12 @@ def build_probe_table(
     stash_cap: int = STASH_CAP,
 ) -> ProbeTable:
     """Place every distinct k-mer in its primary bucket, overflow to the
-    stash."""
+    stash; ``SlotLimitError`` when the table, first or doubled, would pass
+    the probe's slot limit."""
     u = kmer_lo.size
-    lam = _TARGET_LAMBDA.get(slots_per_bucket, 1.0)
-    n_buckets = _next_pow2(max(int(u / lam), 1))
+    n_buckets = first_buckets(u, slots_per_bucket)
     while True:
+        check_slot_limit(n_buckets, slots_per_bucket)
         table, stash_idx = _try_build(
             kmer_lo, kmer_hi, set_id, genome_count, n_buckets, slots_per_bucket
         )

@@ -12,9 +12,12 @@ the torch forms work in int64 and keep the low 32 bits with
 its low 32 bits are kept, and those are exact).
 
 Kernel H1 ``encode_window`` (``ops/kernels/csrc/encode_window.cu``)
-fuses the 2-bit unpack, the rolling encode and the window quality sums.
-``encode_window`` below is its wrapper: a CUDA tensor launches the kernel
-(or raises); a CPU tensor takes ``encode_window_plain``.
+fuses the 2-bit unpack, the rolling encode and the window quality sums at
+k <= 31; kernel H3 ``encode_words`` (``ops/kernels/csrc/encode_words.cu``)
+does the same for the multi-word keys of k >= 32.  ``encode_window`` and
+``encode_words`` below are their wrappers: a CUDA tensor launches the
+kernel (or raises); a CPU tensor takes ``encode_window_plain`` or
+``encode_words_plain``.
 """
 
 from __future__ import annotations
@@ -197,16 +200,15 @@ def rolling_encode(packed: torch.Tensor, k: int) -> torch.Tensor:
 # word j holds bases [31j, 31j + 31) of the window, and a tail word the last
 # k mod 31 bases when there are any.  Each word is a base-4 number of at most
 # 62 bits, so comparing the word tuples lexicographically is comparing the
-# k-mers (and their 2k-bit keys).  Full word j of window w is the 31-mer key
-# at position w + 31j and the tail word the (k mod 31)-mer key at position
-# w + 31 * (k // 31): one H1 launch at k = 31 and one at k mod 31 give every
-# word as a slice, and their window sums at the same offsets add up to the
-# k-window's sum.  H1 itself stays at k <= 31: a block stages H1_SPAN
-# positions and owns the windows of the first H1_SPAN - 64, so no window may
-# reach more than 64 positions past its start.
+# k-mers (and their 2k-bit keys).  At k <= 31 the one word is H1's key; at
+# k >= 32 kernel H3 ``encode_words`` (``ops/kernels/csrc/encode_words.cu``)
+# writes every word and the window sums in one launch.
 
 #: bases in a word of a multi-word key
 WORD_BASES = MAX_K
+#: positions of kernel H3's quality prefixes (``kSpan`` of encode_words.cu);
+#: a block owns the windows that start in the first ``H3_SPAN - 128``
+H3_SPAN = 4096
 
 
 def word_spans(k: int) -> list:
@@ -231,44 +233,63 @@ def encode_words_plain(
     return words, qsums
 
 
-def words_from_h1(
-    packed: torch.Tensor, k: int, qual: Optional[torch.Tensor] = None,
-) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
-    """``encode_words`` composed from ``encode_window`` at k = 31 and at
-    k mod 31 (kernel H1 for CUDA tensors): the words are slices of its
-    keys, the sums a sum of its sums at the words' offsets."""
-    w = packed.shape[1] * 4 - k + 1
-    out = {n: encode_window(packed, n, qual)
-           for n in {n for _, n in word_spans(k)}}
-    words = tuple(out[n][0][:, s: s + w] for s, n in word_spans(k))
-    qsums = None
-    if qual is not None:
-        parts = [out[n][1][:, s: s + w] for s, n in word_spans(k)]
-        qsums = parts[0]
-        for part in parts[1:]:
-            qsums = qsums + part
-    return words, qsums
-
-
 def encode_words(
     packed: torch.Tensor, k: int, qual: Optional[torch.Tensor] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
     """Multi-word window keys of any k >= 1: packed codes [B, L/4] u8 and
     optionally qual [B, L] u8 -> (ceil(k / 31) int64 [B, W] words, most
-    significant first; qsums int32 [B, W] or None), W = L - k + 1.
+    significant first, each contiguous; qsums int32 [B, W] or None),
+    W = L - k + 1.
 
-    A CUDA tensor takes ``words_from_h1`` (two H1 launches, one when k is
-    at most 31 or a multiple of 31); a CPU tensor ``encode_words_plain``."""
+    A CUDA tensor at k <= 31 takes H1 ``encode_window`` (one launch, its
+    key the one word); at k >= 32 it launches kernel H3 on the current
+    stream, once (counted in ``encode_words.launches``, and in
+    ``encode_words.launches_by_mode`` under "k=<k>, keys" or
+    "k=<k>, keys+sums"), whose
+    words are planes of one [ceil(k / 31), B, W] tensor.  A CPU tensor
+    takes ``encode_words_plain``."""
     if k < 1:
         raise ValueError(f"encode_words supports k >= 1, got {k}")
     _check_u8_2d(packed, "packed")
-    if packed.shape[1] * 4 < k:
-        raise ValueError(f"batch length {packed.shape[1] * 4} must be >= k={k}")
-    if packed.device.type == "cpu":
-        if qual is not None and qual.device != packed.device:
-            raise ValueError("packed and qual must be on one device")
+    rows, length = packed.shape[0], packed.shape[1] * 4
+    if length < k:
+        raise ValueError(f"batch length {length} must be >= k={k}")
+    device = packed.device
+    if qual is not None and qual.device != device:
+        raise ValueError("packed and qual must be on one device")
+    if device.type == "cpu":
         return encode_words_plain(packed, k, qual)
-    return words_from_h1(packed, k, qual)
+    if k <= MAX_K:
+        keys, qsums = encode_window(packed, k, qual)
+        return (keys,), qsums
+    if device.type != "cuda":
+        raise ValueError(f"encode_words: unsupported device {device}")
+    if qual is not None:
+        _check_u8_2d(qual, "qual")
+        if tuple(qual.shape) != (rows, length):
+            raise ValueError(
+                f"qual shape {tuple(qual.shape)} != ({rows}, {length}) of the codes")
+
+    w = length - k + 1
+    planes = torch.empty((len(word_spans(k)), rows, w), dtype=torch.int64, device=device)
+    qsums = (torch.empty((rows, w), dtype=torch.int32, device=device)
+             if qual is not None else None)
+    lib = load_library()
+    # the launch sets the device; the guard gives the caller's back
+    with torch.cuda.device(device):
+        status = lib.stt_encode_words(
+            packed.data_ptr(), qual.data_ptr() if qual is not None else None,
+            planes.data_ptr(), qsums.data_ptr() if qsums is not None else None,
+            rows, length, k, device.index, torch.cuda.current_stream(device).cuda_stream)
+    check_status(lib, status, "encode_words")
+    encode_words.launches += 1
+    encode_words.launches_by_mode[f"k={k}, " + ("keys+sums" if qual is not None
+                                                 else "keys")] += 1
+    return tuple(planes.unbind(0)), qsums
+
+
+encode_words.launches = 0
+encode_words.launches_by_mode = Counter()
 
 
 def window_quality_sums(qual: torch.Tensor, k: int) -> torch.Tensor:

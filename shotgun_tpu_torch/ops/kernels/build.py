@@ -10,8 +10,9 @@ import time: the first CUDA call of a kernel wrapper calls
 here.  The library is rebuilt when a source is newer than it.
 
 The wrappers live beside their plain PyTorch versions
-(``ops/encode.py`` for H1 ``encode_window``, ``ops/probe.py`` for H2
-``hash_probe``); every pointer and the stream travel as ``c_void_p``.
+(``ops/encode.py`` for H1 ``encode_window`` and H3 ``encode_words``,
+``ops/probe.py`` for H2 ``hash_probe``); every pointer and the stream
+travel as ``c_void_p``.
 """
 
 from __future__ import annotations
@@ -98,16 +99,24 @@ _LOCK = threading.Lock()
 _LIB = None
 
 
+_VP, _I64, _CI = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+#: each C entry point: (argument types, return type)
+ENTRY_POINTS = {
+    "stt_encode_window": ([_VP, _VP, _VP, _VP, _I64, _I64, _CI, _CI, _VP], _CI),
+    "stt_encode_words": ([_VP, _VP, _VP, _VP, _I64, _I64, _CI, _CI, _VP], _CI),
+    "stt_hash_probe": ([_VP, _VP, _I64, _CI, _VP, _CI, _VP, _VP, _VP, _I64, _CI, _VP],
+                       _CI),
+    "stt_error_string": ([_CI], ctypes.c_char_p),
+}
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points' argument and return types on ``lib``."""
-    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.stt_encode_window.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, vp]
-    lib.stt_encode_window.restype = ci
-    lib.stt_hash_probe.argtypes = [vp, vp, i64, ci, vp, ci, vp, vp, vp,
-                                   i64, ci, vp]
-    lib.stt_hash_probe.restype = ci
-    lib.stt_error_string.argtypes = [ci]
-    lib.stt_error_string.restype = ctypes.c_char_p
+    """Declare the C entry points' argument and return types on ``lib``,
+    those it has (another checkout's build may predate some)."""
+    for name, (args, res) in ENTRY_POINTS.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
     return lib
 
 

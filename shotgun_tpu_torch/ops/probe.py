@@ -30,12 +30,11 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from shotgun_tpu_torch.index.hashtable import STASH_CAP
+from shotgun_tpu_torch.index.hashtable import STASH_CAP, STASH_POS_BASE, slots_fit
 from shotgun_tpu_torch.ops.encode import M32, mix32, split_key
 from shotgun_tpu_torch.ops.kernels.build import check_status, load_library
 
 EMPTY = 0xFFFFFFFF
-STASH_POS_BASE = 0x7FFF0000
 #: windows per step of the plain probe (bounds its [n, slots, 4] gather)
 _PLAIN_CHUNK = 1 << 20
 
@@ -106,7 +105,7 @@ def _check_table(table: torch.Tensor, stash: torch.Tensor,
     n_buckets = table.shape[0]
     if n_buckets < 1 or n_buckets & (n_buckets - 1):
         raise ValueError(f"n_buckets must be a power of two, got {n_buckets}")
-    if n_buckets * table.shape[1] > STASH_POS_BASE:
+    if not slots_fit(n_buckets, table.shape[1]):
         raise ValueError(f"{n_buckets} x {table.shape[1]} slots: slot positions "
                          f"would reach the stash's from {STASH_POS_BASE:#x}")
     if stash.dtype != torch.int32 or stash.dim() != 2 or stash.shape[1] != 4:

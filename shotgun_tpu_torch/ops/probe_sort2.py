@@ -45,6 +45,8 @@ from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
 def probe_dedupe_sorted_words(
     tab: SortedTableDev,
     words: Sequence[torch.Tensor],  # int64 [B, W] each, most significant first
+                                    # (contiguous, as encode_words makes them:
+                                    # flattening each is a view)
     query_ok: torch.Tensor,         # bool [B, W] windows that passed validity + MKQ
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(hit, set_id, genome_count, first_occ), each [B, W].

@@ -42,7 +42,14 @@ from shotgun_tpu_torch.index.device_build import (
     index_table_admitted,
 )
 from shotgun_tpu_torch.index.extsim import apply_similarity_filter
-from shotgun_tpu_torch.index.hashtable import ProbeTable, build_probe_table
+from shotgun_tpu_torch.index.hashtable import (
+    ProbeTable,
+    SlotLimitError,
+    build_probe_table,
+    check_slot_limit,
+    first_buckets,
+    slot_limit_keys,
+)
 from shotgun_tpu_torch.models.pipeline import DeviceTable
 from shotgun_tpu_torch.ops.probe import HashTableDev, hash_table_to_device
 from shotgun_tpu_torch.ops.probe_sort import sorted_table, sorted_table_host
@@ -165,8 +172,9 @@ class KmerReference:
         self._probe_tables: Dict[str, ProbeTable] = {}
         self._set_member_dense: Optional[np.ndarray] = None
         self._device_tables: Dict[tuple, DeviceTable] = {}
-        # device build products (from_device_build), and whether their
-        # 16-slot hash table cannot be assembled
+        # device build products (from_device_build), and whether the
+        # 16-slot hash table cannot be made (a device build's over the
+        # budget or its stash, any past the probe's slot limit)
         self._built: Optional[dict] = None
         self._hash16_failed = False
 
@@ -535,10 +543,16 @@ class KmerReference:
         The JAX package's routes (its ``reference.py:574-628``, ``:645``):
         at k <= 31 'auto' is 'hash16' above the crossover
         (``AUTO_HASH_MIN_KEYS``, else this reference's device's) distinct
-        k-mers, unless the device-built hash table could not be assembled,
-        and 'sort' otherwise, and any value but 'sort' and 'hash16' is
-        'hash'.  At k > 31 every value but 'hash' is the sort join of
-        multi-word keys, and 'hash' raises."""
+        k-mers, unless the hash table could not be made, and 'sort'
+        otherwise, and any value but 'sort' and 'hash16' is 'hash'.  At
+        k > 31 every value but 'hash' is the sort join of multi-word keys,
+        and 'hash' raises.
+
+        On every device the probe numbers at most ``STASH_POS_BASE`` slots
+        (``index.hashtable``), where the JAX package's positions wrap: past
+        ``slot_limit_keys(16)`` keys 'auto' is 'sort', and an explicit
+        'hash16', or 'hash' past ``slot_limit_keys(4)``, raises
+        ``SlotLimitError`` (a ``ValueError``) before any table is made."""
         method = method or os.environ.get(PROBE_ENV, "auto")
         k = self.index.k
         if k > 31:
@@ -552,9 +566,14 @@ class KmerReference:
             crossover = self.AUTO_HASH_MIN_KEYS
             if crossover is None:
                 crossover = device_routes(self.device).auto_hash_min_keys
-            big = self.index.num_kmers > crossover and not self._hash16_failed
+            u = self.index.num_kmers
+            big = crossover < u <= slot_limit_keys(16) and not self._hash16_failed
             return "hash16" if big else "sort"
-        return method if method in ("sort", "hash16") else "hash"
+        method = method if method in ("sort", "hash16") else "hash"
+        if method != "sort":
+            slots = 16 if method == "hash16" else 4
+            check_slot_limit(first_buckets(self.index.num_kmers, slots), slots)
+        return method
 
     def probe_table(self, method: str = "hash") -> ProbeTable:
         """Host hash table: 4 slots for 'hash', 16 for 'hash16'."""
@@ -584,7 +603,10 @@ class KmerReference:
         - a host index (built, loaded or EXTSIM-filtered) assembles its
           4- or 16-slot table on ``device`` (``index_hash_table``), the
           host builder's bit for bit; over the budget it takes the host
-          builder (``probe_table``) and uploads that table.
+          builder (``probe_table``) and uploads that table.  When a stash
+          doubling would take either past the probe's slot limit
+          (``SlotLimitError``), 'auto' takes the sort join from then on
+          and an explicit method raises.
 
         The CLI's ``--profile`` names a host index's route inside
         ``table_build``: stage ``hash_table_device`` or
@@ -606,15 +628,20 @@ class KmerReference:
                 if requested != "auto":
                     raise RuntimeError(
                         "the 16-slot hash table of this device-built reference "
-                        "does not fit the memory budget or its stash")
+                        "does not fit the memory budget, its stash or the "
+                        "probe's slot limit")
                 method = "sort"
         key = (method, str(device))
+        if key not in self._device_tables and method != "sort":
+            try:
+                self._device_tables[key] = self._index_hash_table(method, device)
+            except SlotLimitError:
+                if requested != "auto":
+                    raise
+                self._hash16_failed = True
+                method, key = "sort", ("sort", str(device))
         if key not in self._device_tables:
-            if method == "sort":
-                tab = sorted_table(*self.sort_columns(), device)
-            else:
-                tab = self._index_hash_table(method, device)
-            self._device_tables[key] = tab
+            self._device_tables[key] = sorted_table(*self.sort_columns(), device)
         return self._device_tables[key]
 
     def _index_hash_table(self, method: str, device: torch.device) -> HashTableDev:

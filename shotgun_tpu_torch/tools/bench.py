@@ -44,7 +44,7 @@ it is 4,900 reads/s.  Sections, in order (logs on stderr):
    hash table (the 16-slot host table of the same reference on the sort
    route, which has none), each with its bytes, its byte bound at
    3.35 TB/s and its share (``tools/bench_encode.py``,
-   ``tools/bench_probe.py``);
+   ``tools/bench_probe.py``), and its plain version's time;
 9. cold start (CUDA only): the kernels' ``nvcc`` build into a temporary
    directory, then the walls of two ``python -m shotgun_tpu_torch -t
    dumpalign -g`` children on a 3 x 30 kbp, 4,096-read corpus, whose
@@ -89,9 +89,9 @@ from shotgun_tpu_torch.aligner import PseudoAlignment
 from shotgun_tpu_torch.index.build import build_index
 from shotgun_tpu_torch.io.data_file import open_fastq_stream
 from shotgun_tpu_torch.models.pipeline import AggResult, aggregate_batch, align_batch
-from shotgun_tpu_torch.ops.encode import encode_window
+from shotgun_tpu_torch.ops.encode import encode_window, encode_window_plain
 from shotgun_tpu_torch.ops.kernels.build import build
-from shotgun_tpu_torch.ops.probe import HashTableDev, hash_probe
+from shotgun_tpu_torch.ops.probe import HashTableDev, hash_probe, hash_probe_plain
 from shotgun_tpu_torch.parallel.mesh import (
     align_aggregate_sharded,
     make_mesh,
@@ -117,6 +117,8 @@ WINDOWS = READ_LEN - K + 1
 STAGE_ITERS = 8
 #: launches a kernel is timed over in section 8
 KERNEL_ITERS = 100
+#: calls the plain versions are timed over
+PLAIN_ITERS = 5
 #: section 7's plumbing check: the JAX bench's multichip_cpu8 child sizes
 CPU8 = dict(devices=8, reads_per_device=16384, genomes=3, genome_len=30_000)
 #: section 9's corpus: the JAX bench's warm-compile probe's
@@ -410,7 +412,9 @@ class Bench:
         h1 = {"shape": [packed.shape[0], 4 * packed.shape[1]], "mode": "keys",
               "bytes": nbytes, "bound_ms": bound_ms(nbytes),
               "ms": kept_ms(lambda: encode_window(packed, K), keys.numel() * 8,
-                            KERNEL_ITERS)}
+                            KERNEL_ITERS),
+              "plain_ms": kept_ms(lambda: encode_window_plain(packed, K),
+                                  keys.numel() * 8, PLAIN_ITERS)}
         tab = self.tab
         route = self.args.probe
         if not isinstance(tab, HashTableDev):
@@ -420,7 +424,9 @@ class Bench:
               "stash": tab.stash.shape[0], "probes": keys.numel(),
               "distinct_buckets": buckets, "bytes": nbytes, "bound_ms": bound_ms(nbytes),
               "ms": kept_ms(lambda: hash_probe(tab.table, tab.stash, keys),
-                            keys.numel() * 12, KERNEL_ITERS)}
+                            keys.numel() * 12, KERNEL_ITERS),
+              "plain_ms": kept_ms(lambda: hash_probe_plain(tab.table, tab.stash, keys),
+                                  keys.numel() * 12, PLAIN_ITERS)}
         for res in (h1, h2):
             res["bound_share"] = res["bound_ms"] / res["ms"]
         self.extra["kernels"] = {"encode_window": h1, "hash_probe": h2,

@@ -1,17 +1,22 @@
-"""Kernel H1 (``encode_window``) on the card: this checkout's kernel, and
-optionally another checkout's, at the main path's three shapes, each held
+"""Kernels H1 (``encode_window``) and H3 (``encode_words``) on the card:
+this checkout's kernels, and optionally another checkout's, each held
 exactly against the plain version and timed beside its byte bound.
 
     python -m shotgun_tpu_torch.tools.bench_encode [--other DIR] [--iters N]
 
-Shapes (k = 31): a batch of 32,768 reads at row stride 160 (40 packed
-bytes a row), keys only (the align routes without ``--min-kmer-quality``)
-and keys with quality sums (with it), and the 32 Mbp genome as one row
-(the device build).  ``--other DIR`` builds DIR's
-``shotgun_tpu_torch/ops/kernels/csrc`` into ``DIR/build/kernels`` and
-times it in the same process in turns (other, this, this, other), so two
-versions are compared on one card.  Both libraries are called through
-their C entry point with the same preallocated outputs.
+H1's shapes (k = 31), the main path's: a batch of 32,768 reads at row
+stride 160 (40 packed bytes a row), keys only (the align routes without
+``--min-kmer-quality``) and keys with quality sums (with it), and the
+32 Mbp genome as one row (the device build); each version called through
+its C entry point with the same preallocated outputs.  H3's shapes, the
+word path's: the card's batch of 65,536 reads at row stride 160, k = 75
+keys with sums and keys only, and k = 150 keys with sums; each version
+called through its ``encode_words`` wrapper, as the word join calls it.
+``--other DIR`` builds DIR's ``shotgun_tpu_torch/ops/kernels/csrc`` into
+``DIR/build/kernels`` and times it in the same process in turns (other,
+this, this, other), so two versions are compared on one card; DIR's
+``encode_words`` is its own ``ops/encode.py`` on its own library (for a
+checkout without H3, H1 at k = 31 and k mod 31, sliced and summed).
 
 Timing (``device_ms``): a sleep kernel gives the host a head start, so
 all ``iters`` launches are queued before the first runs and the CUDA
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import sys
@@ -34,7 +40,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from shotgun_tpu_torch.ops.encode import encode_window_plain
+from shotgun_tpu_torch.ops import encode as this_encode
+from shotgun_tpu_torch.ops.encode import encode_window_plain, encode_words_plain, word_spans
 from shotgun_tpu_torch.ops.kernels.build import (
     BUILD_DIR,
     CSRC_DIR,
@@ -52,6 +59,13 @@ K = 31
 BATCH = 32768
 ROW_BYTES = 40
 GENOME_BASES = 32_000_000
+#: H3's shapes: the card's batch at row stride 160; (k, quality sums)
+WORD_BATCH = 65536
+WORD_CASES = ((75, True), (75, False), (150, True))
+#: calls a word shape is timed over: a wrapper call costs the host tens of
+#: microseconds (the parent's composition ~0.15 ms), so all are queued
+#: within the sleep kernel's ~10 ms
+WORD_ITERS = 48
 
 
 def h1_bytes(rows: int, packed_width: int, k: int, keys: bool, sums: bool) -> int:
@@ -61,6 +75,16 @@ def h1_bytes(rows: int, packed_width: int, k: int, keys: bool, sums: bool) -> in
     length = 4 * packed_width
     nwin = length - k + 1
     return (rows * (packed_width + 8 * nwin) * keys
+            + rows * (length + 4 * nwin) * sums)
+
+
+def h3_bytes(rows: int, packed_width: int, k: int, sums: bool) -> int:
+    """Bytes H3 must move for [rows, 4 * packed_width] positions: packed
+    codes in and ceil(k / 31) int64 words out, and with ``sums`` quality
+    bytes in and int32 sums out."""
+    length = 4 * packed_width
+    nwin = length - k + 1
+    return (rows * (packed_width + 8 * len(word_spans(k)) * nwin)
             + rows * (length + 4 * nwin) * sums)
 
 
@@ -165,6 +189,54 @@ def _time_shape(libs: Dict[str, H1Library], order: List[str], shape: dict,
     return times
 
 
+def other_encode(other: str, lib: H1Library):
+    """DIR's ``ops/encode.py`` as a module of its own whose kernels are
+    ``lib`` (DIR's build)."""
+    path = os.path.join(other, "shotgun_tpu_torch", "ops", "encode.py")
+    spec = importlib.util.spec_from_file_location("_other_encode", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.load_library = lambda: lib.lib
+    return mod
+
+
+def _time_words(fns: Dict[str, Callable], order: List[str], rng: np.random.Generator,
+                device: torch.device, k: int, sums: bool, iters: int) -> dict:
+    """H3's shape (WORD_BATCH rows at stride 160, ``k``, with or without
+    sums) through each ``encode_words`` in ``fns``, held against the plain
+    version, then timed in ``order``."""
+    packed = torch.from_numpy(
+        rng.integers(0, 256, size=(WORD_BATCH, ROW_BYTES), dtype=np.uint8)).to(device)
+    qual = (torch.from_numpy(rng.integers(
+        33, 127, size=(WORD_BATCH, 4 * ROW_BYTES), dtype=np.uint8)).to(device)
+        if sums else None)
+    nwin = 4 * ROW_BYTES - k + 1
+    out_bytes = WORD_BATCH * nwin * (8 * len(word_spans(k)) + 4 * sums)
+    words_p, sums_p = encode_words_plain(packed, k, qual)
+    want = list(words_p) + ([sums_p] if sums else [])
+    times: Dict[str, List[float]] = {name: [] for name in fns}
+    for name in order:
+        fn = fns[name]
+        words, got_sums = fn(packed, k, qual)
+        got = list(words) + ([got_sums] if sums else [])
+        torch.cuda.synchronize()
+        if len(got) != len(want) or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name}: encode_words k={k} != plain")
+        del words, got_sums, got
+        times[name].append(kept_ms(lambda: fn(packed, k, qual), out_bytes, iters))
+    nbytes = h3_bytes(WORD_BATCH, ROW_BYTES, k, sums)
+    b = bound_ms(nbytes)
+    return {"name": f"words k={k}" + (", keys+sums" if sums else ", keys"),
+            "shape": [WORD_BATCH, 4 * ROW_BYTES], "bytes": nbytes, "bound_ms": b,
+            "ms": times, "bound_share": {n: b / min(t) for n, t in times.items()}}
+
+
+def _say(entry: dict) -> None:
+    print(f"{entry['name']}: {entry['bytes']} B, bound {entry['bound_ms']:.4f} ms; "
+          + "; ".join(f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                      for n, ts in entry["ms"].items()), flush=True)
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="another checkout whose H1 is timed beside this one")
@@ -176,6 +248,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         raise SystemExit(1)
     device = torch.device("cuda", 0)
     libs = {"this": H1Library(build(force=True).path)}
+    words_fns = {"this": this_encode.encode_words}
     order = ["this", "this"]
     if args.other:
         other = os.path.abspath(args.other)
@@ -184,18 +257,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
             force=True, csrc_dir=os.path.join(other, rel),
             build_dir=os.path.join(other, "build", "kernels")).path)
         assert os.path.basename(libs["other"].path) == LIB_NAME
+        words_fns["other"] = other_encode(other, libs["other"]).encode_words
         order = ["other", "this", "this", "other"]
     res = {"device": torch.cuda.get_device_name(0), "k": K, "iters": args.iters,
-           "order": order, "shapes": []}
-    for shape in _shapes(np.random.default_rng(args.seed), device):
+           "word_iters": WORD_ITERS, "order": order, "shapes": [], "word_shapes": []}
+    rng = np.random.default_rng(args.seed)
+    for shape in _shapes(rng, device):
         times = _time_shape(libs, order, shape, args.iters)
         b = bound_ms(shape["bytes"])
         entry = {"name": shape["name"], "bytes": shape["bytes"], "bound_ms": b,
                  "ms": times, "bound_share": {n: b / min(t) for n, t in times.items()}}
         res["shapes"].append(entry)
-        print(f"{shape['name']}: {shape['bytes']} B, bound {b:.4f} ms; " + "; ".join(
-            f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms" for n, ts in times.items()),
-            flush=True)
+        _say(entry)
+    for k, sums in WORD_CASES:
+        entry = _time_words(words_fns, order, rng, device, k, sums, WORD_ITERS)
+        res["word_shapes"].append(entry)
+        _say(entry)
     print(json.dumps(res), flush=True)
     return res
 

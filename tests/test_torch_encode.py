@@ -1,6 +1,7 @@
-"""shotgun_tpu_torch.ops.encode (kernel H1's plain path) against the JAX
-package's encode: its jnp forms and its Pallas kernels in interpret mode.
-Every output is an integer and compared exactly."""
+"""shotgun_tpu_torch.ops.encode (the plain paths of kernels H1 and H3, and
+numpy models of both kernels' arithmetic) against the JAX package's
+encode: its jnp forms and its Pallas kernels in interpret mode.  Every
+output is an integer and compared exactly."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -274,12 +275,143 @@ def _full_keys_port(words, k) -> np.ndarray:
     return out
 
 
+# --- a numpy model of kernel H3's arithmetic (ops/kernels/csrc/encode_words.cu):
+# H1's tiles, the codes of each group of words staged from the tile's start
+# plus 31 bases a word rounded down to 64 positions, each word H1's extract,
+# and the window sum one difference of a prefix split at f0 + k (rounded
+# down to 16): B[f + e] + C - A[f].  Its index math is the kernel's, line
+# for line.
+
+
+def _staged_prefix(flat_q: np.ndarray, origin: int, span: int) -> np.ndarray:
+    """A block prefix of quality bytes [origin, origin + span), zero past
+    the end: P[i] = sum of the bytes before origin + i, i <= span."""
+    staged = np.zeros(span, np.int32)
+    part = flat_q[origin: origin + span]
+    staged[: part.size] = part
+    return np.concatenate([[0], np.cumsum(staged, dtype=np.int32)])
+
+
+def encode_words_model(packed, qual, k, span=tenc.H3_SPAN, group=128):
+    """(words, qsums) of kernel H3 as its blocks compute them: each block
+    owns the windows starting in ``span - 128`` positions of the flattened
+    batch, stages ``2 * span`` positions of codes for ``group`` words at a
+    time and two quality prefixes of ``span`` positions."""
+    rows, length = packed.shape[0], packed.shape[1] * 4
+    tile, code_span = span - 128, 2 * span
+    assert tile + 63 + 31 * (group - 1) + 64 <= code_span
+    total, nwin = rows * length, length - k + 1
+    nw, tail = -(-k // 31), k % 31
+    flat_p = packed.reshape(-1)
+    flat_q = qual.reshape(-1).astype(np.int32) if qual is not None else None
+    words = np.full((nw, rows * nwin), -1, np.int64)
+    qsums = np.full(rows * nwin, -1, np.int32) if qual is not None else None
+    for f0 in range(0, total, tile):
+        f1 = min(f0 + tile, total)
+        b0, r0 = divmod(f0, length)
+        b1, r1 = divmod(f1, length)
+        g0 = b0 * nwin + min(r0, nwin)
+        n_out = b1 * nwin + min(r1, nwin) - g0
+        if n_out == 0:
+            continue
+        first = 0 if r0 < nwin else length - r0
+        w_first = r0 if r0 < nwin else 0
+        t = np.arange(n_out)
+        if nwin < tile:
+            ends = (w_first + t) // nwin
+        else:
+            ends = (t >= min(nwin - w_first, tile)).astype(np.int64)
+        f = first + t + ends * (k - 1)
+        assert f.max() < tile
+        if qual is not None:
+            fb = (f0 + k) & ~15
+            e = f0 + k - fb
+            a, b = _staged_prefix(flat_q, f0, span), _staged_prefix(flat_q, fb, span)
+            c = a[fb - f0] if fb - f0 <= span else a[span] + flat_q[f0 + span: fb].sum()
+            qsums[g0: g0 + n_out] = b[f + e] + c - a[f]
+        for j0 in range(0, nw, group):
+            start = f0 + 31 * j0
+            origin = start & ~63
+            d = start - origin
+            staged = np.zeros(code_span // 4 + 8, np.uint8)
+            part = flat_p[origin // 4: (origin + code_span) // 4]
+            staged[: part.size] = part
+            cw = staged[: code_span // 4].view("<u8")
+            for j in range(j0, min(j0 + group, nw)):
+                n = tail if j == nw - 1 and tail else 31
+                words[j, g0: g0 + n_out] = _model_window_key(cw, d + f + 31 * (j - j0), n)
+    return (tuple(words.reshape(nw, rows, nwin)),
+            qsums.reshape(rows, nwin) if qsums is not None else None)
+
+
+#: (rows, packed row bytes, span, group): rows longer than a tile, several
+#: rows to a tile, one row of many tiles, word groups cut short (group 2),
+#: and the kernel's own span and group
+H3_SHAPES = [(9, 40, 256, 9), (3, 130, 256, 9), (23, 48, 512, 2), (1, 257, 256, 9),
+             (5, 38, 384, 2), (2, 41, 4096, 128)]
+
+
+@pytest.mark.parametrize("k", WORD_KS + ["L"])
+def test_h3_model_equals_plain_and_jax(k):
+    """The kernel's arithmetic (numpy model) against ``encode_words_plain``
+    at every k of WORD_KS and at k = L (one window a row, a quality split
+    past the staged prefix), on shapes that cut rows and windows at tile
+    edges and words into several groups, with windows that reach into the
+    zero padding; and against the JAX jnp forms at the kernel's span."""
+    rng = np.random.default_rng(5000 + (0 if k == "L" else k))
+    for rows, width, span, group in H3_SHAPES:
+        length = 4 * width
+        kk = length if k == "L" else k
+        if length < kk:
+            continue
+        codes = _padded(rng, rows, length, 0, 4)
+        codes[0, : min(kk + 8, length)] = 3  # all-T words
+        qual = _padded(rng, rows, length, 33, 127)
+        packed = tenc.pack_codes_2bit(codes)
+        words, qsums = encode_words_model(packed, qual, kk, span, group)
+        want_w, want_q = tenc.encode_words_plain(
+            torch.from_numpy(packed), kk, torch.from_numpy(qual))
+        assert len(words) == len(want_w) == len(tenc.word_spans(kk))
+        for got, want in zip(words, want_w):
+            np.testing.assert_array_equal(got, want.numpy())
+        np.testing.assert_array_equal(qsums, want_q.numpy())
+        if span == tenc.H3_SPAN:  # one JAX compile a k
+            want = _full_keys_jax(jenc.rolling_encode_words_jnp(jnp.asarray(codes), kk))
+            np.testing.assert_array_equal(
+                _full_keys_port([torch.from_numpy(w) for w in words], kk), want)
+            np.testing.assert_array_equal(
+                qsums, np.asarray(jenc.window_quality_sums(jnp.asarray(qual), kk)))
+        only_words, none = encode_words_model(packed, None, kk, span, group)
+        assert none is None
+        for got, want in zip(only_words, words):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [32, 75, 150])
+def test_h3_model_sums_equal_pallas_at_the_kernel_span(k):
+    """At the kernel's own span, a single row one tile plus a few windows
+    long and a batch of 160-base rows: the model's sums equal the JAX
+    Pallas kernel in interpret mode, its words the jnp encode."""
+    rng = np.random.default_rng(k)
+    tile = tenc.H3_SPAN - 128
+    for rows, length in ((1, tile + k + 3 - (k + 3) % 4), (7, 160)):
+        codes = _padded(rng, rows, length, 0, 4)
+        qual = _padded(rng, rows, length, 33, 127)
+        words, qsums = encode_words_model(tenc.pack_codes_2bit(codes), qual, k)
+        assert qsums.shape[1] == length - k + 1
+        np.testing.assert_array_equal(
+            qsums, np.asarray(window_qsums_pallas(jnp.asarray(qual), k, interpret=True)))
+        np.testing.assert_array_equal(
+            _full_keys_port([torch.from_numpy(w) for w in words], k),
+            _full_keys_jax(jenc.rolling_encode_words_jnp(jnp.asarray(codes), k)))
+
+
 @pytest.mark.parametrize("k", WORD_KS)
 def test_encode_words_matches_jnp_and_pallas_sums(k):
     """``encode_words_plain`` equals ``rolling_encode_words_jnp`` as full
     keys, and its sums ``window_quality_sums`` and ``window_qsums_pallas``
-    in interpret mode; the composition from H1's plain version
-    (``words_from_h1``, as the card runs it) equals it word for word."""
+    in interpret mode; kernel H3's arithmetic (``encode_words_model``, as
+    the card runs it) equals it word for word."""
     rng = np.random.default_rng(3000 + k)
     b, l = 6, 4 * ((k + 40) // 4)
     codes = _padded(rng, b, l, 0, 4)
@@ -296,10 +428,10 @@ def test_encode_words_matches_jnp_and_pallas_sums(k):
     np.testing.assert_array_equal(qsums.numpy(), want_q)
     np.testing.assert_array_equal(
         np.asarray(window_qsums_pallas(jnp.asarray(qual), k, interpret=True)), want_q)
-    composed, composed_q = tenc.words_from_h1(packed, k, torch.from_numpy(qual))
-    for g, w in zip(composed, words):
-        np.testing.assert_array_equal(g.numpy(), w.numpy())
-    np.testing.assert_array_equal(composed_q.numpy(), qsums.numpy())
+    modelled, modelled_q = encode_words_model(packed.numpy(), qual, k)
+    for g, w in zip(modelled, words):
+        np.testing.assert_array_equal(g, w.numpy())
+    np.testing.assert_array_equal(modelled_q, qsums.numpy())
 
 
 def test_encode_words_on_cpu_takes_plain_and_checks_k():
@@ -317,3 +449,26 @@ def test_encode_words_on_cpu_takes_plain_and_checks_k():
     for k in (0, 97):
         with pytest.raises(ValueError):
             tenc.encode_words(packed, k)
+
+
+@pytest.mark.parametrize("k", [21, 32, 75, 150])
+def test_encode_words_on_cpu_launches_nothing(k):
+    """A CPU tensor takes ``encode_words_plain`` at every k: neither H1
+    nor H3 counts a launch, and the words and sums are the plain ones."""
+    rng = np.random.default_rng(9 + k)
+    packed = torch.from_numpy(tenc.pack_codes_2bit(_padded(rng, 5, 160, 0, 4)))
+    qual = torch.from_numpy(_padded(rng, 5, 160, 33, 127))
+    counts = (tenc.encode_window.launches, tenc.encode_words.launches,
+              dict(tenc.encode_words.launches_by_mode))
+    for q in (None, qual):
+        words, qsums = tenc.encode_words(packed, k, q)
+        want_w, want_q = tenc.encode_words_plain(packed, k, q)
+        assert len(words) == len(want_w) == len(tenc.word_spans(k))
+        for got, want in zip(words, want_w):
+            assert got.is_contiguous()
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+        assert (qsums is None) == (q is None)
+        if q is not None:
+            np.testing.assert_array_equal(qsums.numpy(), want_q.numpy())
+    assert counts == (tenc.encode_window.launches, tenc.encode_words.launches,
+                      dict(tenc.encode_words.launches_by_mode))

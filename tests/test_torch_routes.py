@@ -3,7 +3,9 @@ card each equals the JAX package's (read from it where it is a name,
 compared by behavior where it is a literal inside a JAX function), and the
 H100's as pure functions of the card's total memory and of the processes
 that share it: the budget, the device-build window, the auto crossover
-and the auto batch, each where its caller reads it."""
+and the auto batch, each where its caller reads it.  Then the probe's slot
+limit on every device: past it 'auto' takes the sort join and an explicit
+hash table raises before any table is made."""
 
 from types import SimpleNamespace
 
@@ -18,6 +20,10 @@ from shotgun_tpu.reference import KmerReference as JaxKmerReference
 from shotgun_tpu_torch import cli, routes
 from shotgun_tpu_torch import reference as treference
 from shotgun_tpu_torch.index import device_build as tdb
+from shotgun_tpu_torch.index import hashtable as tht
+from shotgun_tpu_torch.io.data_file import FASTAFile
+from shotgun_tpu_torch.ops import probe as tprobe
+from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
 from shotgun_tpu_torch.reference import KmerReference, _DeviceIndexStub
 from shotgun_tpu_torch.routes import JAX_ROUTES, card_routes, device_routes
 
@@ -26,6 +32,7 @@ CPU = torch.device("cpu")
 #: ``torch.cuda.get_device_properties(0).total_memory`` of an NVIDIA H100
 #: 80GB HBM3
 H100_BYTES = 85_017_493_504
+CORPUS_FA = "tests/golden/data/corpus.fa"
 GATE_ENV = ("SHOTGUN_TPU_PROBE", "SHOTGUN_TPU_DEVICE_BUILD", "SHOTGUN_TPU_DEVICE_BUILD_MIN",
             "SHOTGUN_TPU_DEVICE_BUILD_MAX", tdb.HBM_BUDGET_ENV)
 
@@ -385,3 +392,132 @@ def test_profile_devbuild_build_cost_prices_both_routes(monkeypatch):
     ok = [s["device_once_s"] <= s["host_s"] for s in res["sizes"]]
     want = 0.01 if all(ok) else 0.02 if ok[1] else None
     assert res["device_no_slower_from_mbp"] == want
+
+
+# ---------------------------------------------------------------------------
+# the probe's slot limit, on every device
+# ---------------------------------------------------------------------------
+
+SLOT_LIMIT = 0x7FFF0000
+
+
+def test_slot_limit_is_where_the_first_tables_pass_it():
+    """``slot_limit_keys`` is the last key count whose first table, of
+    ``_next_pow2(u / 4)`` buckets of 16 slots or ``_next_pow2(4u)`` of 4,
+    has at most 0x7FFF0000 slots (the stash's first position): 268,435,459
+    and 67,108,864 keys."""
+    assert tht.STASH_POS_BASE == SLOT_LIMIT == tprobe.STASH_POS_BASE
+    for slots, sized in ((16, lambda u: tht._next_pow2(int(u / 4)) * 16),
+                         (4, lambda u: tht._next_pow2(4 * u) * 4)):
+        u = tht.slot_limit_keys(slots)
+        assert sized(u) <= SLOT_LIMIT < sized(u + 1)
+        assert tdb._first_buckets(u, slots) * slots == sized(u)
+        assert tht.slots_fit(tht.first_buckets(u, slots), slots)
+        assert not tht.slots_fit(tht.first_buckets(u + 1, slots), slots)
+    assert (tht.slot_limit_keys(16), tht.slot_limit_keys(4)) == (268_435_459, 67_108_864)
+
+
+class _Counted:
+    """A host index that reports ``num_kmers`` keys and is otherwise
+    ``index``."""
+
+    def __init__(self, index, num_kmers: int) -> None:
+        self._index, self.num_kmers = index, num_kmers
+
+    def __getattr__(self, name):
+        return getattr(self._index, name)
+
+
+def _counted_reference(num_kmers: int) -> KmerReference:
+    """The golden corpus's k = 11 host index, reporting ``num_kmers``."""
+    ref = KmerReference(11, FASTAFile(CORPUS_FA).container, device=CPU)
+    ref.index = _Counted(ref.index, num_kmers)
+    return ref
+
+
+def _no_table_made(monkeypatch) -> None:
+    """Every hash table maker raises if it is called."""
+    def made(*args, **kwargs):
+        raise AssertionError("a hash table was made")
+
+    for module, name in ((treference, "index_hash_table"), (treference, "build_probe_table"),
+                         (treference, "device_hash_table")):
+        monkeypatch.setattr(module, name, made)
+
+
+@pytest.mark.parametrize("card", [False, True])
+def test_auto_takes_the_sort_join_past_the_slot_limit(card, monkeypatch):
+    """A host index whose 16-slot table would pass the slot limit takes the
+    sort join at 'auto', on the CPU's routes and the card's, and its probe
+    table is the sort table, made without a hash table; at the limit
+    'auto' still takes hash16."""
+    if card:
+        _on_card(monkeypatch, tdb)
+        _on_card(monkeypatch, treference)
+    limit = tht.slot_limit_keys(16)
+    assert _counted_reference(limit).probe_method() == "hash16"
+    ref = _counted_reference(limit + 1)
+    assert ref.probe_method() == "sort"
+    _no_table_made(monkeypatch)
+    tab = ref.device_probe_tables(CPU)
+    assert isinstance(tab, SortedTableDev) and list(ref._device_tables) == [("sort", "cpu")]
+    assert ref.probe_method() == "sort"
+
+
+@pytest.mark.parametrize("method,slots", [("hash16", 16), ("hash", 4), ("other", 4)])
+def test_explicit_hash_past_the_slot_limit_raises_before_any_table(method, slots,
+                                                                   monkeypatch):
+    """An explicit 'hash16' past 268,435,459 keys, or 'hash' (any value but
+    'sort' and 'hash16') past 67,108,864, raises ValueError naming the slot
+    limit and SHOTGUN_TPU_PROBE=sort before any table exists; one key fewer
+    keeps the route."""
+    limit = tht.slot_limit_keys(slots)
+    want = "hash16" if method == "hash16" else "hash"
+    assert _counted_reference(limit).probe_method(method) == want
+    ref = _counted_reference(limit + 1)
+    _no_table_made(monkeypatch)
+    with pytest.raises(ValueError, match="SHOTGUN_TPU_PROBE=sort") as err:
+        ref.device_probe_tables(CPU, method)
+    assert isinstance(err.value, tht.SlotLimitError) and "0x7fff0000" in str(err.value)
+    monkeypatch.setenv("SHOTGUN_TPU_PROBE", method)
+    with pytest.raises(ValueError, match="slots"):
+        ref.probe_method()
+    assert ref._device_tables == {} and ref._probe_tables == {}
+
+
+def test_a_doubling_past_the_slot_limit_takes_the_sort_join_at_auto(monkeypatch):
+    """When a stash doubling would take a host index's table past the slot
+    limit (here a limit lowered to the first table's slots), both table
+    makers raise SlotLimitError; 'auto' then takes the sort join from then
+    on, and an explicit 'hash16' raises it."""
+    ref = KmerReference(11, FASTAFile(CORPUS_FA).container, device=CPU)
+    monkeypatch.setattr(KmerReference, "AUTO_HASH_MIN_KEYS", 0)
+    nb = tht.first_buckets(ref.index.num_kmers, 16)
+    monkeypatch.setattr(tht, "STASH_POS_BASE", nb * 16)
+    assert ref.probe_method() == "hash16"
+    idx = ref.index
+    with pytest.raises(tht.SlotLimitError):
+        tht.build_probe_table(idx.kmer_lo, idx.kmer_hi, idx.set_id, idx.genome_counts(),
+                              slots_per_bucket=16, stash_cap=-1)
+    monkeypatch.setattr(tdb, "_place", lambda *args: None)  # every stash overflows
+    with pytest.raises(tht.SlotLimitError):
+        tdb.index_hash_table(idx, 16, CPU)
+    with pytest.raises(tht.SlotLimitError):
+        ref.device_probe_tables(CPU, "hash16")
+    assert isinstance(ref.device_probe_tables(CPU), SortedTableDev)
+    assert ref._hash16_failed and ref.probe_method() == "sort"
+    assert list(ref._device_tables) == [("sort", "cpu")]
+
+
+def test_a_device_build_past_the_slot_limit_takes_the_sort_join(monkeypatch):
+    """A device build whose 16-slot table would pass the slot limit (the
+    budget raised so it would admit it) is not assembled: 'auto' keeps the
+    sort join; an explicit 'hash16' of that many keys raises first."""
+    monkeypatch.setenv(tdb.HBM_BUDGET_ENV, str(1 << 50))
+    built = _device_build_rows(5)
+    monkeypatch.setattr(tdb, "_first_buckets", lambda u, slots: (SLOT_LIMIT // 16) + 1)
+    assert tdb.device_hash_table(built) is None
+    ref = _stub_reference(tht.slot_limit_keys(16) + 1)
+    assert ref.probe_method() == "sort"
+    with pytest.raises(tht.SlotLimitError):
+        ref.probe_method("hash16")
