@@ -1,0 +1,7 @@
+"""Milliseconds of the program's phase span ``fasta_parse`` a call, over the
+traced window's runs."""
+
+
+def read(run):
+    seconds, calls = run.spans.get("fasta_parse", (0.0, 0))
+    return 1e3 * seconds / calls if calls else None

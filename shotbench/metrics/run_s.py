@@ -1,0 +1,8 @@
+"""The window's wall time over the whole dumpalign -g runs completed in
+it (the window ends with its last run)."""
+
+
+def read(run):
+    if run.kind != "oneshot" or not run.requests:
+        return None
+    return run.window_s / len(run.requests)
