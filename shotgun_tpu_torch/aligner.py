@@ -325,7 +325,8 @@ def _prefetch_iter(it: Iterable, depth: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with phase("fill_wait"):
+                item = q.get()
             if item is done:
                 if holder:
                     raise holder[0]
@@ -512,12 +513,15 @@ class PseudoAlignment:
         n_batches = 0
         lists: List[StoreLists] = []
         for codes_p, qual, lengths, got in chunks:
-            lengths_d = upload(lengths, self.device)
-            res = batch_fn(upload(codes_p, self.device),
-                           upload(qual, self.device) if use_qual else None, lengths_d)
-            # zero-length rows are the tail padding of the final chunk
-            # (the FASTQ grammar requires a nonempty sequence line)
-            carry = _fold_agg(carry, aggregate_batch(res, lengths_d > 0))
+            with phase("stage"):
+                lengths_d = upload(lengths, self.device)
+                codes_d = upload(codes_p, self.device)
+                qual_d = upload(qual, self.device) if use_qual else None
+            with phase("enqueue"):
+                res = batch_fn(codes_d, qual_d, lengths_d)
+                # zero-length rows are the tail padding of the final chunk
+                # (the FASTQ grammar requires a nonempty sequence line)
+                carry = _fold_agg(carry, aggregate_batch(res, lengths_d > 0))
             if store_reads:
                 lists.append(StoreLists(*(
                     t.to("cpu", non_blocking=True)
@@ -530,11 +534,13 @@ class PseudoAlignment:
         """The run's one fetch of the carry (which also completes the
         lists' copies), the read store, then the host totals: a duplicate
         read id raises before any total moves, as in the JAX package."""
-        host = FoldCarry(*(t.cpu().numpy() for t in carry))
+        with phase("carry_fetch"):
+            host = FoldCarry(*(t.cpu().numpy() for t in carry))
         if lists:
             with phase("read_store"):
                 self._store_lists(lists, ids)
-        self._merge_fold_carry(host, self.kmer_reference.index.num_records)
+        with phase("host_merge"):
+            self._merge_fold_carry(host, self.kmer_reference.index.num_records)
         self._batch_no += n_batches
 
     def align_stream(
@@ -575,7 +581,8 @@ class PseudoAlignment:
                 break
             except LmaxExceeded:
                 lpad *= 2
-        stream.finish_validation()  # NativeParseError discards the run
+        with phase("validate"):
+            stream.finish_validation()  # NativeParseError discards the run
         ids = None
         if lists:
             with phase("read_store"):
@@ -787,6 +794,7 @@ class PseudoAlignment:
 
     # -- summary (reference kmer.py:622-657) ----------------------------------
 
+    @phase("summary")
     def get_summary(self) -> Dict[str, Any]:
         stats: Dict[str, int] = {
             "unique_mapped_reads": self._n_unique,

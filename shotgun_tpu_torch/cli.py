@@ -216,7 +216,10 @@ def create_alignment_from_reference(
     gates = (min_read_quality, min_kmer_quality, max_genomes)
     with phase("table_build"):
         kmer_reference.device_probe_tables(device)
-    stream = None if mesh is not None else open_fastq_stream(reads_file, lazy=True)
+    stream = None
+    if mesh is None:
+        with phase("stream_open"):
+            stream = open_fastq_stream(reads_file, lazy=True)
     if stream is not None:
         alignment = PseudoAlignment(kmer_reference, device)
         try:

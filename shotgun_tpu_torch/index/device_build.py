@@ -57,6 +57,7 @@ from shotgun_tpu_torch.index.hashtable import (
 from shotgun_tpu_torch.ops.encode import M32, encode_window, mix32, pack_codes_2bit, split_key
 from shotgun_tpu_torch.ops.probe_sort import host_key_words
 from shotgun_tpu_torch.routes import JAX_ROUTES, device_routes
+from shotgun_tpu_torch.utils.profiling import phase
 
 #: record-count cap: a (set, record) pair packs as set * R_CAP + record
 R_CAP = 4096
@@ -243,7 +244,8 @@ def device_build_tables(genomes, k: int, device: torch.device) -> Optional[dict]
     if k > 31 or r > R_CAP or g < k:
         return None
     t0 = time.perf_counter()
-    prep = _host_prep(genomes)
+    with phase("db_host_prep"):
+        prep = _host_prep(genomes)
     if prep is None:
         return None
     prep_s = time.perf_counter() - t0

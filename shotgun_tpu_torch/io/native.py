@@ -22,6 +22,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from shotgun_tpu_torch.utils.profiling import phase
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 #: csrc -> io -> shotgun_tpu_torch -> the repository root
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(CSRC_DIR)))
@@ -315,16 +317,17 @@ def fastq_stream_chunks_packed(data: bytes, chunk_records: int, lmax: int,
     dummy = np.zeros((chunk_records, 1), dtype=np.uint8)
     try:
         while True:
-            codes = np.zeros((chunk_records, lmax // 4), dtype=np.uint8)
-            qual = (np.zeros((chunk_records, lmax), dtype=np.uint8)
-                    if with_qual else dummy)
-            lengths = np.zeros(chunk_records, dtype=np.int32)
-            got = lib.stpu_fastq_stream_next_packed(
-                handle, chunk_records,
-                _ptr(codes, ctypes.c_uint8),
-                _ptr(qual, ctypes.c_uint8) if with_qual else null_u8,
-                _ptr(lengths, ctypes.c_int32), lmax,
-            )
+            with phase("fill"):
+                codes = np.zeros((chunk_records, lmax // 4), dtype=np.uint8)
+                qual = (np.zeros((chunk_records, lmax), dtype=np.uint8)
+                        if with_qual else dummy)
+                lengths = np.zeros(chunk_records, dtype=np.int32)
+                got = lib.stpu_fastq_stream_next_packed(
+                    handle, chunk_records,
+                    _ptr(codes, ctypes.c_uint8),
+                    _ptr(qual, ctypes.c_uint8) if with_qual else null_u8,
+                    _ptr(lengths, ctypes.c_int32), lmax,
+                )
             if got < 0:
                 raise LmaxExceeded(lmax)
             if got == 0:
@@ -357,16 +360,17 @@ def fastq_stream_chunks_vpacked(data: bytes, chunk_records: int, lmax: int,
     dummy = np.zeros((chunk_records, 1), dtype=np.uint8)
     try:
         while True:
-            codes = np.zeros((chunk_records, lmax // 4), dtype=np.uint8)
-            qual = (np.zeros((chunk_records, lmax), dtype=np.uint8)
-                    if with_qual else dummy)
-            lengths = np.zeros(chunk_records, dtype=np.int32)
-            got = lib.stpu_fastq_vstream_next_packed(
-                handle, chunk_records,
-                _ptr(codes, ctypes.c_uint8),
-                _ptr(qual, ctypes.c_uint8) if with_qual else null_u8,
-                _ptr(lengths, ctypes.c_int32), lmax, n_threads,
-            )
+            with phase("fill"):
+                codes = np.zeros((chunk_records, lmax // 4), dtype=np.uint8)
+                qual = (np.zeros((chunk_records, lmax), dtype=np.uint8)
+                        if with_qual else dummy)
+                lengths = np.zeros(chunk_records, dtype=np.int32)
+                got = lib.stpu_fastq_vstream_next_packed(
+                    handle, chunk_records,
+                    _ptr(codes, ctypes.c_uint8),
+                    _ptr(qual, ctypes.c_uint8) if with_qual else null_u8,
+                    _ptr(lengths, ctypes.c_int32), lmax, n_threads,
+                )
             if got == -1:
                 raise LmaxExceeded(lmax)
             if got == -2 or got == 0:

@@ -26,6 +26,8 @@ import threading
 import time
 from typing import List, NamedTuple
 
+from shotgun_tpu_torch.utils.profiling import phase
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 #: csrc -> kernels -> ops -> shotgun_tpu_torch -> the repository root
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(CSRC_DIR))))
@@ -125,7 +127,8 @@ def load_library() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            _LIB = declare(ctypes.CDLL(build().path))
+            with phase("kernel_build"):
+                _LIB = declare(ctypes.CDLL(build().path))
     return _LIB
 
 

@@ -93,7 +93,7 @@ COST_ITERS = 7
 COST_READS = 65_536
 #: the top-level stages both routes run beside their build (the wall less
 #: the child's start-up); ``stages_s`` is their sum with the build's
-CLI_STAGES = ("fasta_parse", "table_build", "stream_align")
+CLI_STAGES = ("fasta_parse", "table_build", "stream_open", "stream_align", "summary")
 CLI_ENV = {"host": {"SHOTGUN_TPU_DEVICE_BUILD": "0"},
            "device": {"SHOTGUN_TPU_DEVICE_BUILD_MIN": "0",
                       "SHOTGUN_TPU_DEVICE_BUILD_MAX": str(1 << 62)}}

@@ -1,21 +1,28 @@
 """Per-phase wall-clock / throughput counters of the port's CLI
 (``--profile``; the port's copy of ``shotgun_tpu/utils/profiling.py``,
-with the same phase names and report format).
+with the same report format).
 
 A process-global registry of phase timers (parse, build, table, align,
-store, save) surfaced by the CLI's ``--profile`` flag.  Device time is
-read with ``torch.profiler`` in ``shotgun_tpu_torch.tools.profile_align``,
-not here.
+store, save, and the stream's fill, staging, launches and per-sample
+steps) surfaced by the CLI's ``--profile`` flag.  While enabled, each
+phase is also a ``torch.profiler.record_function`` span, so a
+``torch.profiler`` trace shows it as a ``user_annotation`` on the clock
+of the device's kernels.  Phases may run on several threads (the
+stream's fill runs on its producer thread); a span never stays open
+across a generator's ``yield``, so each thread's spans nest.
 """
 
 from __future__ import annotations
 
 import contextlib
 import sys
+import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Iterator
+
+from torch.profiler import record_function
 
 __all__ = ["PROFILER", "PhaseStat", "Profiler", "parse_report", "phase"]
 
@@ -31,6 +38,7 @@ class Profiler:
     def __init__(self) -> None:
         self.enabled = False
         self.stats: "OrderedDict[str, PhaseStat]" = OrderedDict()
+        self._lock = threading.Lock()
 
     def enable(self) -> None:
         self.enabled = True
@@ -42,13 +50,15 @@ class Profiler:
             return
         t0 = time.perf_counter()
         try:
-            yield
+            with record_function(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
-            st = self.stats.setdefault(name, PhaseStat())
-            st.seconds += dt
-            st.calls += 1
-            st.items += items
+            with self._lock:
+                st = self.stats.setdefault(name, PhaseStat())
+                st.seconds += dt
+                st.calls += 1
+                st.items += items
 
     def report(self, stream=None) -> None:
         if not self.enabled or not self.stats:
