@@ -409,31 +409,61 @@ extern "C" void stpu_fastq_stream_close(void* handle) {
 // Validating packed stream: the whole-input contract (structure, character
 // classes, duplicate ids, length equality, unparsed data) is enforced IN
 // the fill pass itself, so lazy callers need no separate whole-input scan
-// thread -- on a 2-core host the scan pass used to burn the second core
-// that the (parallel) encode phase now uses.  Detection is complete but
-// statuses are advisory: ANY nonzero status makes the Python caller rerun
-// the input through the regex engine, which raises the reference's exact
-// error type and message (io/data_file.py).
+// thread.  Detection is complete but statuses are advisory: ANY nonzero
+// status makes the Python caller rerun the input through the regex engine,
+// which raises the reference's exact error type and message
+// (io/data_file.py).
 //
-// Two phases per chunk:
-//   1. sequential structure walk -- line splitting, '@' header + id class,
-//      '+' separator dots, terminator lookahead, duplicate-id hash set,
-//      length equality, whitespace-only junk lines;
-//   2. parallel encode -- per-record 2-bit seq pack (a non-ACGT byte
-//      flags UNPARSED) and quality-class validation (+ optional copy),
-//      split across worker threads over independent output rows.
+// Two phases per chunk, each on up to n_threads threads:
+//   1. structure walk -- line splitting, '@' header + id class, '+'
+//      separator dots, terminator lookahead, length equality,
+//      whitespace-only junk lines, each id's hash.  A chunk of at least
+//      kSplitMin records, with the bytes of kSplitMin records (at the
+//      stream's bytes a record so far) left to walk, is cut into byte
+//      ranges, one a thread, each starting at a record head, and the
+//      ranges are walked at once; smaller chunks are walked on one thread;
+//   2. duplicate ids, in a set sharded by hash bits (each shard filled by
+//      one thread, in walk order), and the encode -- per-record 2-bit seq
+//      pack (a non-ACGT byte flags UNPARSED) and quality-class validation
+//      (+ optional copy) over independent output rows.
+//
+// Every call returns what the serial walk returns.  The walk is a function
+// of the cursor alone, so a range that starts where the serial walk has a
+// record boundary walks on as the serial walk would.  Range t + 1 starts
+// at a line that opens with '@' and whose second-next line opens with '+':
+// in valid input exactly the records' '@' lines (a quality line that opens
+// with '@' has a sequence line two lines on).  Range t's records are kept
+// only when the ranges before it each ended exactly where the next began;
+// where one did not (only in invalid input), or the ranges held too few
+// records, the rest of the chunk is walked serially from where the last
+// kept range stopped.  Records walked past the chunk's size are dropped
+// and walked again in the next chunk.
 // ---------------------------------------------------------------------------
 
-#include <atomic>
+#include <algorithm>
 #include <thread>
 
 namespace {
 
+// the fill's thread cap, and the chunk size (records) below which a phase
+// runs on one thread
+constexpr int kMaxThreads = 8;
+constexpr int64_t kSplitMin = 4096;
+// the duplicate-id set's shards, by the top bits of an id's hash: a fixed
+// count, so the thread count may change from chunk to chunk (thread u of
+// nt fills the shards s with s % nt == u)
+constexpr int kShardBits = 6, kShards = 1 << kShardBits;
+// a walk's fault for a record wider than lmax (the call returns -1)
+constexpr int LMAX_EXCEEDED = -1;
+
+// what one thread writes on its own: a cache line pair of its own, so
+// threads that write side by side do not share a line
+constexpr size_t kOwnLines = 128;
+
 // Zero-allocation duplicate-id set: open addressing over (hash, span)
 // entries pointing back into the input buffer -- the std::string-per-id
-// of the scan's unordered_set dominated the sequential phase of the
-// validating fill.
-struct IdSpanSet {
+// of the scan's unordered_set dominated the validating fill's walk.
+struct alignas(kOwnLines) IdSpanSet {
   struct Entry {
     uint64_t hash = 0;
     int64_t start = -1;
@@ -464,10 +494,9 @@ struct IdSpanSet {
     slots.swap(ns);
   }
 
-  // returns false if the id was already present
-  bool insert(int64_t start, int64_t len) {
+  // h = hash_bytes of the id; returns false if the id was already present
+  bool insert(uint64_t h, int64_t start, int64_t len) {
     if (slots.empty() || count * 10 >= slots.size() * 7) grow();
-    uint64_t h = hash_bytes(base + start, len);
     size_t mask = slots.size() - 1;
     size_t j = (size_t)h & mask;
     while (slots[j].start >= 0) {
@@ -482,18 +511,196 @@ struct IdSpanSet {
   }
 };
 
+// A record the walk accepted: byte offsets into the input.
+struct Rec {
+  int64_t head;       // its '@' line
+  int64_t seq, qual;  // its sequence and quality lines
+  int64_t end;        // one past its quality line: the next record's head
+  int64_t id;         // its id, stripped
+  int32_t len, id_len;
+};
+
+// One walk: the records it accepted, each id's hash, where the cursor
+// stopped, and the fault (OK, UNPARSED, LEN_MISMATCH or LMAX_EXCEEDED) of
+// the record after the last one accepted.
+struct alignas(kOwnLines) Walk {
+  std::vector<Rec> recs;
+  std::vector<uint64_t> hash;
+  int64_t pos = 0;
+  int fault = OK;
+};
+
+// The serial walk from byte `pos` while the cursor is before `end` and
+// fewer than `cap` records are accepted: each record's structure, stride
+// and length equality.
+void walk_records(const uint8_t* d, int64_t n, int64_t pos, int64_t end,
+                  int64_t cap, int64_t lmax, Walk* w) {
+  w->recs.clear();
+  w->hash.clear();
+  w->fault = OK;
+  int64_t l0s, l0e;
+  while ((int64_t)w->recs.size() < cap && pos < end &&
+         next_line(d, n, &pos, &l0s, &l0e)) {
+    // empty/whitespace line tolerance applies only BEFORE the first
+    // group: between groups the terminator check below (next line must
+    // open with '@') fires first, so blank separator lines are UNPARSED
+    // -- matching the regex engine (ADVICE.md r4 #4)
+    if (l0e <= l0s) continue;
+    if (d[l0s] != '@') {
+      // not a group head: the scan leaves it unmatched, so it must be
+      // whitespace-only (UnparsedDataError otherwise)
+      if (first_nonws(d, l0s, l0e) >= 0) {
+        w->fault = UNPARSED;
+        break;
+      }
+      continue;
+    }
+    // '@' head: in a valid input this ALWAYS opens a group (quality
+    // lines that start with '@' are consumed as part of their group and
+    // never reach here)
+    if (l0e - l0s < 2 || !all_in(d, l0s + 1, l0e, T.id_ok)) {
+      w->fault = UNPARSED;
+      break;
+    }
+    int64_t s1, e1, s2, e2, s3, e3;
+    if (!next_line(d, n, &pos, &s1, &e1) || !next_line(d, n, &pos, &s2, &e2) ||
+        !next_line(d, n, &pos, &s3, &e3)) {
+      w->fault = UNPARSED;  // truncated group
+      break;
+    }
+    if (e1 <= s1 || e2 <= s2 || d[s2] != '+' || e3 <= s3) {
+      w->fault = UNPARSED;
+      break;
+    }
+    bool dots = true;
+    for (int64_t j = s2 + 1; j < e2; ++j) dots &= (d[j] == '.');
+    // terminator: next line must open with '@', or this group ends the
+    // input with at most one trailing newline (pos == n covers both)
+    if (!dots || (pos < n && d[pos] != '@')) {
+      w->fault = UNPARSED;
+      break;
+    }
+    int64_t sl = e1 - s1, ql = e3 - s3;
+    if (sl > lmax || ql > lmax) {
+      w->fault = LMAX_EXCEEDED;
+      break;
+    }
+    if (sl != ql) {
+      w->fault = LEN_MISMATCH;
+      break;
+    }
+    int64_t is = l0s + 1, ie = l0e;
+    strip_span(d, &is, &ie);
+    w->recs.push_back({l0s, s1, s3, pos, is, (int32_t)sl, (int32_t)(ie - is)});
+    w->hash.push_back(IdSpanSet::hash_bytes(d + is, ie - is));
+  }
+  w->pos = pos;
+}
+
+// The first record head at or after byte p, else n: the start of a line
+// that opens with '@' and whose second-next line opens with '+'.
+int64_t next_head(const uint8_t* d, int64_t n, int64_t p) {
+  if (p > 0 && p < n && d[p - 1] != '\n') {
+    const void* nl = std::memchr(d + p, '\n', (size_t)(n - p));
+    p = nl ? (const uint8_t*)nl - d + 1 : n;
+  }
+  while (p < n) {
+    int64_t q = p, s0, e0, s, e;
+    next_line(d, n, &q, &s0, &e0);
+    const int64_t next = q;
+    if (e0 > s0 && d[s0] == '@' && next_line(d, n, &q, &s, &e) &&
+        next_line(d, n, &q, &s, &e) && e > s && d[s] == '+')
+      return p;
+    p = next;
+  }
+  return n;
+}
+
+// Phase 2's per-record work: the 2-bit pack into crow, and the quality
+// check and copy into qrow (none when null).  True when a byte is out of
+// class: a base other than ACGT, or a quality byte outside PHRED33.
+bool encode_record(const uint8_t* d, const Rec& r, uint8_t* crow,
+                   uint8_t* qrow) {
+  const uint8_t* src = d + r.seq;
+  const int64_t sl = r.len;
+  uint8_t ored = 0;
+  int64_t j = 0;
+  for (; j + 4 <= sl; j += 4) {
+    uint8_t c0 = T.code[src[j]], c1 = T.code[src[j + 1]];
+    uint8_t c2 = T.code[src[j + 2]], c3 = T.code[src[j + 3]];
+    ored |= c0 | c1 | c2 | c3;
+    crow[j >> 2] = (uint8_t)(c0 | (c1 << 2) | (c2 << 4) | (c3 << 6));
+  }
+  if (j < sl) {
+    uint8_t acc = 0;
+    for (int64_t t = 0; j + t < sl; ++t) {
+      uint8_t c = T.code[src[j + t]];
+      ored |= c;
+      acc |= (uint8_t)(c << (2 * t));
+    }
+    crow[j >> 2] = acc;
+  }
+  // any non-ACGT byte has code >= 4 (N or 255): reads reject N too
+  bool bad = (ored & 0xFC) != 0;
+  const uint8_t* qsrc = d + r.qual;
+  if (qrow) {
+    for (int64_t t = 0; t < sl; ++t) {
+      bad |= !T.qual_ok[qsrc[t]];
+      qrow[t] = qsrc[t];
+    }
+  } else {
+    for (int64_t t = 0; t < sl; ++t) bad |= !T.qual_ok[qsrc[t]];
+  }
+  return bad;
+}
+
+// Calls fn(0) .. fn(nt - 1) at once, fn(0) on the calling thread, and
+// returns when every call has returned.  Two such runs a chunk spawn their
+// threads anew: on 8 cores a pool kept across chunks filled no faster.
+template <class F>
+void run_threads(int nt, const F& fn) {
+  std::vector<std::thread> ts;
+  for (int t = 1; t < nt; ++t) ts.emplace_back([&fn, t] { fn(t); });
+  fn(0);
+  for (auto& t : ts) t.join();
+}
+
+// The kept records of one walk: walk->recs[0, count) are chunk rows
+// [row, row + count).
+struct Part {
+  const Walk* walk;
+  int64_t row, count;
+};
+
+// The first chunk row, in walk order, whose id the stream already holds,
+// among the shards s with s % nt == u (filled here, by this thread alone);
+// INT64_MAX if none.
+int64_t first_duplicate(IdSpanSet* shards, const std::vector<Part>& parts,
+                        int u, int nt) {
+  for (const Part& p : parts) {
+    for (int64_t i = 0; i < p.count; ++i) {
+      const uint64_t h = p.walk->hash[(size_t)i];
+      const int sh = (int)(h >> (64 - kShardBits));
+      if (sh % nt != u) continue;
+      const Rec& r = p.walk->recs[(size_t)i];
+      if (!shards[sh].insert(h, r.id, r.id_len)) return p.row + i;
+    }
+  }
+  return INT64_MAX;
+}
+
 struct VFastqStream {
   const uint8_t* d;
   int64_t n;
   int64_t pos;
-  IdSpanSet seen;
+  IdSpanSet seen[kShards];  // every id of the stream so far
   int64_t n_rec = 0;
   int64_t max_len = 0;
-  int status = OK;  // sticky; advisory (see header comment)
+  int64_t first_head = -1;  // the first record's '@' line
+  int status = OK;          // sticky; advisory (see header comment)
   bool eof = false;
-  // phase-1 scratch, reused across chunks
-  std::vector<int64_t> seq_s, qual_s;
-  std::vector<int32_t> lens;
+  int ranges = 0;  // the last chunk's walk: its ranges, 1 on one thread
+  std::vector<Walk> walks;  // reused across chunks
 };
 
 }  // namespace
@@ -503,7 +710,7 @@ extern "C" void* stpu_fastq_vstream_open(const uint8_t* d, int64_t n) {
   s->d = d;
   s->n = n;
   s->pos = 0;
-  s->seen.base = d;
+  for (IdSpanSet& set : s->seen) set.base = d;
   return s;
 }
 
@@ -522,6 +729,10 @@ extern "C" int64_t stpu_fastq_vstream_maxlen(void* handle) {
   return ((VFastqStream*)handle)->max_len;
 }
 
+extern "C" int stpu_fastq_vstream_ranges(void* handle) {
+  return ((VFastqStream*)handle)->ranges;
+}
+
 extern "C" void stpu_fastq_vstream_close(void* handle) {
   delete (VFastqStream*)handle;
 }
@@ -537,141 +748,114 @@ extern "C" int64_t stpu_fastq_vstream_next_packed(
   const uint8_t* d = s->d;
   const int64_t n = s->n;
   const int64_t stride = lmax / 4;
+  const int nt = (int)std::min<int64_t>(std::max<int64_t>(n_threads, 1),
+                                        kMaxThreads);
+  if ((int)s->walks.size() < nt + 2) s->walks.resize(nt + 2);
 
-  s->seq_s.clear();
-  s->qual_s.clear();
-  s->lens.clear();
-
-  // ---- phase 1: sequential structure walk ----
-  int64_t rec = 0;
-  int64_t l0s, l0e;
-  while (rec < max_records && next_line(d, n, &s->pos, &l0s, &l0e)) {
-    // empty/whitespace line tolerance applies only BEFORE the first
-    // group: between groups the terminator check below (next line must
-    // open with '@') fires first, so blank separator lines are UNPARSED
-    // -- matching the regex engine (ADVICE.md r4 #4)
-    if (l0e <= l0s) continue;
-    if (d[l0s] != '@') {
-      // not a group head: the scan leaves it unmatched, so it must be
-      // whitespace-only (UnparsedDataError otherwise)
-      if (first_nonws(d, l0s, l0e) >= 0) {
-        s->status = UNPARSED;
-        return -2;
-      }
-      continue;
+  // ---- phase 1: the structure walk ----
+  std::vector<Part> parts;
+  int64_t rec = 0, pos = s->pos;
+  int fault = OK;
+  // keep w's records up to the chunk's size; true once that decides the
+  // chunk: full, or the serial walk's fault reached
+  auto keep = [&](const Walk& w) {
+    const int64_t k = std::max<int64_t>(
+        std::min((int64_t)w.recs.size(), max_records - rec), 0);
+    if (k > 0) parts.push_back({&w, rec, k});
+    rec += k;
+    if (k > 0 && rec == max_records) {
+      pos = w.recs[(size_t)k - 1].end;
+      return true;
     }
-    // '@' head: in a valid input this ALWAYS opens a group (quality
-    // lines that start with '@' are consumed as part of their group and
-    // never reach here)
-    if (l0e - l0s < 2 || !all_in(d, l0s + 1, l0e, T.id_ok)) {
-      s->status = UNPARSED;
-      return -2;
-    }
-    int64_t s1, e1, s2, e2, s3, e3;
-    if (!next_line(d, n, &s->pos, &s1, &e1) ||
-        !next_line(d, n, &s->pos, &s2, &e2) ||
-        !next_line(d, n, &s->pos, &s3, &e3)) {
-      s->status = UNPARSED;  // truncated group
-      return -2;
-    }
-    if (e1 <= s1 || e2 <= s2 || d[s2] != '+' || e3 <= s3) {
-      s->status = UNPARSED;
-      return -2;
-    }
-    bool dots = true;
-    for (int64_t j = s2 + 1; j < e2; ++j) dots &= (d[j] == '.');
-    if (!dots) {
-      s->status = UNPARSED;
-      return -2;
-    }
-    // terminator: next line must open with '@', or this group ends the
-    // input with at most one trailing newline (s->pos == n covers both)
-    if (s->pos < n && d[s->pos] != '@') {
-      s->status = UNPARSED;
-      return -2;
-    }
-    int64_t sl = e1 - s1, ql = e3 - s3;
-    if (sl > lmax || ql > lmax) return -1;
-    if (sl != ql) {
-      s->status = LEN_MISMATCH;
-      return -2;
-    }
-    int64_t is = l0s + 1, ie = l0e;
-    strip_span(d, &is, &ie);
-    if (!s->seen.insert(is, ie - is)) {
-      s->status = DUPLICATE_ID;
-      return -2;
-    }
-    if (sl > s->max_len) s->max_len = sl;
-    s->seq_s.push_back(s1);
-    s->qual_s.push_back(s3);
-    s->lens.push_back((int32_t)sl);
-    lengths[rec] = (int32_t)sl;
-    ++rec;
-  }
-  if (s->pos >= n) s->eof = true;
-  if (rec == 0) return 0;
-  s->n_rec += rec;
-
-  // ---- phase 2: parallel encode + charclass validation ----
-  std::atomic<int> bad{0};
-  auto worker = [&](int64_t lo, int64_t hi) {
-    bool w_bad = false;
-    for (int64_t r = lo; r < hi; ++r) {
-      const uint8_t* src = d + s->seq_s[(size_t)r];
-      const int64_t sl = s->lens[(size_t)r];
-      uint8_t* crow = codes_packed + r * stride;
-      uint8_t ored = 0;
-      int64_t j = 0;
-      for (; j + 4 <= sl; j += 4) {
-        uint8_t c0 = T.code[src[j]], c1 = T.code[src[j + 1]];
-        uint8_t c2 = T.code[src[j + 2]], c3 = T.code[src[j + 3]];
-        ored |= c0 | c1 | c2 | c3;
-        crow[j >> 2] =
-            (uint8_t)(c0 | (c1 << 2) | (c2 << 4) | (c3 << 6));
-      }
-      if (j < sl) {
-        uint8_t acc = 0;
-        for (int64_t t = 0; j + t < sl; ++t) {
-          uint8_t c = T.code[src[j + t]];
-          ored |= c;
-          acc |= (uint8_t)(c << (2 * t));
-        }
-        crow[j >> 2] = acc;
-      }
-      // any non-ACGT byte has code >= 4 (N or 255): reads reject N too
-      w_bad |= (ored & 0xFC) != 0;
-      const uint8_t* qsrc = d + s->qual_s[(size_t)r];
-      if (qual) {
-        uint8_t* qrow = qual + r * lmax;
-        for (int64_t t = 0; t < sl; ++t) {
-          w_bad |= !T.qual_ok[qsrc[t]];
-          qrow[t] = qsrc[t];
-        }
-      } else {
-        for (int64_t t = 0; t < sl; ++t) w_bad |= !T.qual_ok[qsrc[t]];
-      }
-    }
-    if (w_bad) bad.store(1, std::memory_order_relaxed);
+    pos = w.pos;
+    fault = w.fault;
+    return fault != OK;
   };
-  int64_t nt = n_threads < 1 ? 1 : (n_threads > 8 ? 8 : n_threads);
-  if (rec < 4096) nt = 1;
-  if (nt == 1) {
-    worker(0, rec);
-  } else {
-    std::vector<std::thread> ts;
-    int64_t per = (rec + nt - 1) / nt;
-    for (int64_t t = 0; t < nt; ++t) {
-      int64_t lo = t * per, hi = lo + per > rec ? rec : lo + per;
-      if (lo >= hi) break;
-      ts.emplace_back(worker, lo, hi);
+  bool decided = false;
+  s->ranges = 1;
+  if (nt > 1 && max_records >= kSplitMin) {
+    int64_t bpr = 0;  // bytes a record so far; the first record sizes it
+    if (s->n_rec > 0) {
+      bpr = (s->pos - s->first_head) / s->n_rec;
+    } else {
+      Walk& w = s->walks[0];
+      walk_records(d, n, pos, n, 1, lmax, &w);
+      decided = keep(w);
+      if (!w.recs.empty()) bpr = w.recs[0].end - w.recs[0].head;
     }
-    for (auto& t : ts) t.join();
+    if (!decided && bpr > 0 && n - pos >= kSplitMin * bpr) {
+      // a window expected to hold the chunk's other records, 1/64 over
+      const int64_t need = max_records - rec;
+      const int64_t span = need * bpr + need * bpr / 64 + bpr;
+      const int64_t win_end = span >= n - pos ? n : pos + span;
+      std::vector<int64_t> starts(nt + 1, pos);
+      for (int t = 1; t <= nt; ++t)
+        starts[t] = next_head(
+            d, n, std::max(pos + (win_end - pos) * t / nt, starts[t - 1]));
+      run_threads(nt, [&](int t) {
+        walk_records(d, n, starts[t], starts[t + 1], max_records, lmax,
+                     &s->walks[1 + t]);
+      });
+      s->ranges = nt;
+      for (int t = 0; t < nt && !decided; ++t) {
+        decided = keep(s->walks[1 + t]);
+        if (pos != starts[t + 1]) break;  // not abutting: walk on serially
+      }
+    }
   }
-  if (bad.load()) {
+  if (!decided) {
+    Walk& w = s->walks[nt + 1];
+    walk_records(d, n, pos, n, max_records - rec, lmax, &w);
+    keep(w);
+  }
+  if (fault == OK) {
+    s->pos = pos;
+    if (pos >= n) s->eof = true;
+    if (rec == 0) return 0;
+  }
+
+  // ---- phase 2: duplicate ids, and the encode when the walk passed ----
+  // (a duplicate comes first: the serial walk checks each record's id
+  // before it walks the next record)
+  const int nt2 = rec < kSplitMin ? 1 : nt;
+  int64_t dup[kMaxThreads], longest[kMaxThreads];
+  bool bad[kMaxThreads];
+  run_threads(nt2, [&](int u) {
+    dup[u] = first_duplicate(s->seen, parts, u, nt2);
+    bool w_bad = false;
+    int64_t w_longest = 0;
+    const int64_t per = (rec + nt2 - 1) / nt2;
+    const int64_t lo = u * per, hi = std::min(rec, lo + per);
+    for (const Part& p : parts) {
+      if (fault != OK) break;
+      for (int64_t r = std::max(lo, p.row); r < std::min(hi, p.row + p.count);
+           ++r) {
+        const Rec& x = p.walk->recs[(size_t)(r - p.row)];
+        lengths[r] = x.len;
+        w_longest = std::max(w_longest, (int64_t)x.len);
+        w_bad |= encode_record(d, x, codes_packed + r * stride,
+                               qual ? qual + r * lmax : nullptr);
+      }
+    }
+    bad[u] = w_bad;
+    longest[u] = w_longest;
+  });
+  if (*std::min_element(dup, dup + nt2) != INT64_MAX) {
+    s->status = DUPLICATE_ID;
+    return -2;
+  }
+  if (fault == LMAX_EXCEEDED) return -1;
+  if (fault != OK) {
+    s->status = fault;
+    return -2;
+  }
+  if (std::any_of(bad, bad + nt2, [](bool b) { return b; })) {
     s->status = UNPARSED;
     return -2;
   }
+  if (s->n_rec == 0) s->first_head = parts[0].walk->recs[0].head;
+  s->n_rec += rec;
+  s->max_len = std::max(s->max_len, *std::max_element(longest, longest + nt2));
   return rec;
 }
 

@@ -152,8 +152,8 @@ class FASTAQStream:
             # lazy mode: until validation completes, max_len is a PEEK at
             # the first record and num_records is unknown.  Default: the
             # VALIDATING native fill (chunks_vpacked) enforces the
-            # whole-input contract inside the fill pass itself, freeing
-            # the second host core for its parallel encode phase;
+            # whole-input contract inside the fill pass itself, on
+            # native.fill_threads() threads;
             # SHOTGUN_TPU_VFILL=0 restores the overrun-safe plain fill
             # with the validation scan on a worker thread.  Either way a
             # validation failure discards the run (the caller falls back
@@ -245,12 +245,8 @@ class FASTAQStream:
         whole-input contract, raising NativeParseError mid-iteration on
         invalid input."""
         if self._vfill:
-            try:
-                nt = int(os.environ.get("SHOTGUN_TPU_FILL_THREADS", "2"))
-            except ValueError:
-                nt = 2
             return native.fastq_stream_chunks_vpacked(
-                self._raw, chunk_records, lmax, with_qual, n_threads=nt)
+                self._raw, chunk_records, lmax, with_qual)
         return native.fastq_stream_chunks_packed(
             self._raw, chunk_records, lmax, with_qual)
 

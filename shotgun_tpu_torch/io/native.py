@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from shotgun_tpu_torch.utils.profiling import phase
+from shotgun_tpu_torch.utils.profiling import PROFILER, phase
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 #: csrc -> io -> shotgun_tpu_torch -> the repository root
@@ -110,6 +110,8 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.stpu_fastq_vstream_nrec.argtypes = [ctypes.c_void_p]
         lib.stpu_fastq_vstream_maxlen.restype = ctypes.c_int64
         lib.stpu_fastq_vstream_maxlen.argtypes = [ctypes.c_void_p]
+        lib.stpu_fastq_vstream_ranges.restype = ctypes.c_int
+        lib.stpu_fastq_vstream_ranges.argtypes = [ctypes.c_void_p]
         lib.stpu_fastq_vstream_close.restype = None
         lib.stpu_fastq_vstream_close.argtypes = [ctypes.c_void_p]
         lib.stpu_build_stage1.restype = ctypes.c_void_p
@@ -339,20 +341,41 @@ def fastq_stream_chunks_packed(data: bytes, chunk_records: int, lmax: int,
         lib.stpu_fastq_stream_close(handle)
 
 
+#: the validating fill's thread cap (``shotgun_io.cpp kMaxThreads``)
+MAX_FILL_THREADS = 8
+FILL_THREADS_ENV = "SHOTGUN_TPU_FILL_THREADS"
+
+
+def fill_threads() -> int:
+    """Threads of the validating fill: ``SHOTGUN_TPU_FILL_THREADS`` when it
+    holds a whole number, else the cores this process may use less one for
+    the stream's consumer, at most ``MAX_FILL_THREADS``."""
+    try:
+        return int(os.environ[FILL_THREADS_ENV])
+    except (KeyError, ValueError):
+        return max(1, min(MAX_FILL_THREADS, len(os.sched_getaffinity(0)) - 1))
+
+
 def fastq_stream_chunks_vpacked(data: bytes, chunk_records: int, lmax: int,
-                                with_qual: bool, n_threads: int = 2):
+                                with_qual: bool, n_threads: Optional[int] = None):
     """Validating form of ``fastq_stream_chunks_packed``: the native fill
     enforces the whole-input contract itself (structure, character
     classes, duplicate ids, length equality, unparsed data) while
-    packing, with the encode phase split across ``n_threads`` -- no
-    separate whole-input scan pass needed.  Raises NativeParseError on
-    invalid input (statuses advisory: the caller reruns through the
+    packing, on ``n_threads`` threads (default ``fill_threads()``): a
+    chunk of 4,096 records or more has its structure walk split into
+    byte ranges and its encode into rows, with the serial walk's output
+    -- no separate whole-input scan pass needed.  Raises NativeParseError
+    on invalid input (statuses advisory: the caller reruns through the
     regex engine for the reference's exact errors) and LmaxExceeded when
     a record exceeds the stride.  The final yield is followed by an
-    end-of-stream status check (catches empty inputs)."""
+    end-of-stream status check (catches empty inputs).  With the
+    registry on, each chunk counts into ``fill_walk_split`` or
+    ``fill_walk_serial`` by how its walk ran, with its records."""
     lib = _load()
     assert lib is not None, "requires the native lib"
     assert lmax % 4 == 0
+    if n_threads is None:
+        n_threads = fill_threads()
     p, n = _as_u8(data)
     handle = lib.stpu_fastq_vstream_open(p, n)
     assert handle
@@ -371,6 +394,9 @@ def fastq_stream_chunks_vpacked(data: bytes, chunk_records: int, lmax: int,
                     _ptr(qual, ctypes.c_uint8) if with_qual else null_u8,
                     _ptr(lengths, ctypes.c_int32), lmax, n_threads,
                 )
+            if got > 0 and PROFILER.enabled:
+                split = lib.stpu_fastq_vstream_ranges(handle) > 1
+                PROFILER.count("fill_walk_split" if split else "fill_walk_serial", got)
             if got == -1:
                 raise LmaxExceeded(lmax)
             if got == -2 or got == 0:

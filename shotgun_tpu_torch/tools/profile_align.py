@@ -51,6 +51,7 @@ import torch
 
 from shotgun_tpu_torch.aligner import PseudoAlignment, _lpad, _prefetch_iter
 from shotgun_tpu_torch.io import native_available
+from shotgun_tpu_torch.io.native import FILL_THREADS_ENV, fill_threads
 from shotgun_tpu_torch.io.data_file import open_fastq_stream
 from shotgun_tpu_torch.models.pipeline import align_fold_batch, init_fold_carry
 from shotgun_tpu_torch.reference import PROBE_ENV, KmerReference
@@ -61,7 +62,7 @@ K = 31
 READ_LEN = 150
 #: Chrome-trace categories of work that occupies the device
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-FILL_ENV = "SHOTGUN_TPU_FILL_THREADS"
+FILL_ENV = FILL_THREADS_ENV
 
 
 def device_busy_us(trace_events: Iterable[dict]) -> float:
@@ -334,14 +335,14 @@ def _run(args, device, genomes, work, res: dict, say) -> None:
             s = _median_s(fn, args.repeats, device)
             res["stream_reads_per_s"][name] = n / s
             say(f"stream align {name}: median {s:.4f} s = {n / s:.0f} reads/s")
-        fill_threads = os.environ.get(FILL_ENV)
+        saved_threads = os.environ.get(FILL_ENV)
         res["fill_only_reads_per_s"] = {}
         for nt in [None] + args.fill_threads:
             if nt is not None:
                 os.environ[FILL_ENV] = str(nt)
             s = _median_s(lambda: _fill_only(fastq, args.batch, K), args.repeats,
                           device)
-            tag = f"threads={os.environ.get(FILL_ENV, '2 (default)')}"
+            tag = f"threads={os.environ.get(FILL_ENV, f'{fill_threads()} (default)')}"
             res["fill_only_reads_per_s"][tag] = n / s
             say(f"native fill alone, {tag}: median {s:.4f} s = {n / s:.0f} reads/s")
             if nt is not None:
@@ -349,10 +350,10 @@ def _run(args, device, genomes, work, res: dict, say) -> None:
                 res["stream_reads_per_s"][f"B={args.batch} {tag}"] = n / s
                 say(f"stream align B={args.batch} {tag}: median {s:.4f} s = "
                     f"{n / s:.0f} reads/s")
-        if fill_threads is None:
+        if saved_threads is None:
             os.environ.pop(FILL_ENV, None)
         else:
-            os.environ[FILL_ENV] = fill_threads
+            os.environ[FILL_ENV] = saved_threads
 
         chunks = _chunks_on_device(fastq, args.batch, K, device)
         s = _median_s(lambda: _device_only(ref, chunks, device), args.repeats,

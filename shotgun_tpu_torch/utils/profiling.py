@@ -4,7 +4,8 @@ with the same report format).
 
 A process-global registry of phase timers (parse, build, table, align,
 store, save, and the stream's fill, staging, launches and per-sample
-steps) surfaced by the CLI's ``--profile`` flag.  While enabled, each
+steps) and counters (how the fill walked its chunks) surfaced by the
+CLI's ``--profile`` flag.  While enabled, each
 phase is also a ``torch.profiler.record_function`` span, so a
 ``torch.profiler`` trace shows it as a ``user_annotation`` on the clock
 of the device's kernels.  Phases may run on several threads (the
@@ -32,6 +33,7 @@ class PhaseStat:
     seconds: float = 0.0
     calls: int = 0
     items: int = 0  # unit count (reads, bases, ...), caller-defined
+    counter: bool = False  # made by ``Profiler.count``: calls and items, no time
 
 
 class Profiler:
@@ -60,12 +62,26 @@ class Profiler:
                 st.calls += 1
                 st.items += items
 
+    def count(self, name: str, items: int = 0) -> None:
+        """One call of ``items`` into the counter ``name``: an entry of
+        ``stats`` with no time and no span, printed without a time."""
+        if not self.enabled:
+            return
+        with self._lock:
+            st = self.stats.setdefault(name, PhaseStat(counter=True))
+            st.calls += 1
+            st.items += items
+
     def report(self, stream=None) -> None:
         if not self.enabled or not self.stats:
             return
         stream = stream or sys.stderr
         print("=== profile ===", file=stream)
         for name, st in self.stats.items():
+            if st.counter:
+                print(f"{name:20s} {'':13s}  x{st.calls}  {st.items:,} items",
+                      file=stream)
+                continue
             rate = ""
             if st.items and st.seconds > 0:
                 rate = f"  {st.items / st.seconds:,.0f}/s"

@@ -19,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from shotgun_tpu_torch import cli
 from shotgun_tpu_torch.io import native
 from shotgun_tpu_torch.ops.kernels import build as kbuild
-from shotgun_tpu_torch.utils.profiling import PROFILER, Profiler
+from shotgun_tpu_torch.utils.profiling import PROFILER, Profiler, parse_report
 
 torch.set_num_threads(2)
 
@@ -103,6 +103,25 @@ def test_disabled_phase_records_and_emits_nothing():
     buf = io.StringIO()
     prof_reg.report(buf)
     assert buf.getvalue() == ""
+
+
+def test_counter_has_calls_and_items_and_no_time():
+    prof_reg = Profiler()
+    prof_reg.count("quiet", 5)
+    assert not prof_reg.stats
+    prof_reg.enable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with prof_reg.phase("timed"):
+            prof_reg.count("walks", 3)
+            prof_reg.count("walks", 4)
+    assert not [s for s in _annotations(prof) if s[3] == "walks"]
+    st = prof_reg.stats["walks"]
+    assert (st.calls, st.items, st.seconds, st.counter) == (2, 7, 0.0, True)
+    buf = io.StringIO()
+    prof_reg.report(buf)
+    lines = buf.getvalue().splitlines()
+    assert lines[1].split() == ["walks", "x2", "7", "items"]
+    assert list(parse_report(buf.getvalue())) == ["timed"]
 
 
 def test_phase_ends_its_span_when_the_body_raises():
