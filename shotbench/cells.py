@@ -21,6 +21,7 @@ class Metric:
     name: str
     unit: str
     read: Callable[[object], Optional[float]]
+    source: str = "host_clock"     # where the number comes from, as BENCHMARK.json says
 
 
 @dataclass
@@ -31,6 +32,9 @@ class Cell:
     traffic: dict
     end_to_end: List[Metric] = field(default_factory=list)
     per_layer: List[Metric] = field(default_factory=list)
+    #: the configuration's ``{"data": d, "table": t}``, a process a card;
+    #: None: one process on one card
+    mesh: Optional[Dict[str, int]] = None
 
 
 def load_json(path: str) -> dict:
@@ -67,8 +71,12 @@ def load_cell(root: str, name: str) -> Cell:
     moved = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"]
              if (name in m["workloads"] if "workloads" in m else m["moves"] in moved)]
-    return Cell(name=name, chips=w["chips"], config=config, traffic=traffic,
-                end_to_end=[Metric(m["name"], m["unit"], _reader(root, m["name"]))
-                            for m in e2e],
-                per_layer=[Metric(m["name"], m["unit"], _reader(root, m["name"]))
-                           for m in layer])
+    mesh = config.get("mesh")
+    if mesh is not None and (mesh["data"] * mesh["table"] != w["chips"] or w["chips"] < 2):
+        raise ValueError(f"cell {name!r}: its configuration's mesh {mesh} does not "
+                         f"cover its {w['chips']} chips, or there is one")
+    return Cell(name=name, chips=w["chips"], config=config, traffic=traffic, mesh=mesh,
+                end_to_end=[Metric(m["name"], m["unit"], _reader(root, m["name"]),
+                                   m["source"]) for m in e2e],
+                per_layer=[Metric(m["name"], m["unit"], _reader(root, m["name"]),
+                                  m["source"]) for m in layer])

@@ -5,9 +5,11 @@ find.
     python3 shotbench/control.py --workload <cell> --seed <n> [<n> ...]
 
 The configurations state an exact classification: every k-mer is
-compared on all of its 62 bits.  The control compares only the key's low
-32-bit word (the last 16 bases), as a probe that matches the low word of
-a table row alone would: the nearest coarser key.  For each seed it makes
+compared on all of its bases.  At k <= 31 the control compares only the
+62-bit key's low 32-bit word (the last 16 bases), as a probe that matches
+the low word of a table row alone would; past 31 bases only the most
+significant of the key's words (the first 31 bases), as a probe that
+compares one word of a multi-word key: the nearest coarser key.  For each seed it makes
 the cell's inputs at the cell's own size, as a run does, computes each
 sample file's summary both ways and prints, as one JSON line, the numbers
 the run's check compares with their limits; the control has to exceed a
@@ -40,7 +42,7 @@ def control_numbers(root: str, name: str, seed: int, device: torch.device) -> di
     with tempfile.TemporaryDirectory(prefix="shotbench-control-") as tmp:
         inputs = Inputs(cell, seed, device, tmp)
     want = expected(inputs)
-    got = expected(inputs, key_map=reference.low_word)
+    got = expected(inputs, key_map=reference.control_key(inputs.k))
     files = sorted(got)
     numbers = compare([got[f] for f in files], files, want)
     return {"workload": name, "seed": seed, "numbers": numbers,

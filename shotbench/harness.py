@@ -17,6 +17,11 @@ only the calls above, its phase spans (``utils.profiling.PROFILER``), its
 table's geometry, its auto batch and, for the fill alone, its FASTQ
 stream.  Every answer produced in the run is compared with the plain
 reference's (``reference.py``) once the window has closed.
+
+A cell whose configuration has a ``mesh`` runs as one process a card
+(``procs.py``): each makes the same requests with ``mesh=``, in lockstep,
+process 0 alone writes the input files and decides when the window ends,
+and it checks every process's answers.
 """
 
 from __future__ import annotations
@@ -37,8 +42,9 @@ from torch.profiler import record_function
 
 from shotbench import gen, reference
 from shotbench.cells import Cell, load_cell
-from shotbench.trace import WINDOW_SPAN, Trace, profiler, read_trace
-from shotbench.yardstick import h1_bytes, h2_bytes
+from shotbench.procs import Procs
+from shotbench.trace import WINDOW_SPAN, Trace, profiler, read_device, read_trace
+from shotbench.yardstick import h1_bytes, h2_bytes, h3_bytes
 
 #: top-level module names no run may hold once its window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "shotgun_tpu")
@@ -87,8 +93,13 @@ class Inputs:
     """A cell's inputs from the seed: genomes, samples and their files
     under ``tmp``.  Nothing of the program."""
 
-    def __init__(self, cell: Cell, seed: int, device: torch.device, tmp: str) -> None:
+    def __init__(self, cell: Cell, seed: int, device: torch.device, tmp: str,
+                 primary: bool = True) -> None:
+        """``primary``: also make the samples and write the files (a
+        process of a multi-process run other than 0 makes the genomes
+        alone and reads process 0's files)."""
         self.cell, self.seed, self.device, self.tmp = cell, seed, device, tmp
+        self.primary = primary
         cfg, tr = cell.config, cell.traffic
         self.k, self.read_len = cfg["k"], cfg["read_len"]
         self.gates = reference.Gates.from_traffic(tr.get("gates", {}))
@@ -98,10 +109,11 @@ class Inputs:
         self.samples: List[gen.Sample] = []
         self.paths: List[str] = []
         for f in range(tr["sample_files"]):
-            sample = gen.make_sample(genomes, cfg, tr, seed, f, device)
             path = os.path.join(tmp, f"sample_{f}.fq")
-            gen.write_fastq(path, sample, f, device)
-            self.samples.append(sample)
+            if primary:
+                sample = gen.make_sample(genomes, cfg, tr, seed, f, device)
+                gen.write_fastq(path, sample, f, device)
+                self.samples.append(sample)
             self.paths.append(path)
         self.descriptions = list(genomes.descriptions)
         self.offsets = genomes.offsets
@@ -115,10 +127,13 @@ class Inputs:
 class Kind(Inputs):
     """Set-up and requests of one traffic kind."""
 
-    def __init__(self, cell: Cell, seed: int, device: torch.device, tmp: str) -> None:
+    def __init__(self, cell: Cell, seed: int, device: torch.device, tmp: str,
+                 procs: Optional[Procs] = None) -> None:
         from shotgun_tpu_torch.routes import device_routes
 
-        super().__init__(cell, seed, device, tmp)
+        self.procs = procs
+        self.mesh = None if procs is None else procs.mesh
+        super().__init__(cell, seed, device, tmp, procs is None or procs.primary)
         self.batch = device_routes(device).auto_batch(self.n_reads)
         t0 = time.perf_counter()
         self.prepare()
@@ -143,6 +158,8 @@ class Kind(Inputs):
         except Exception as exc:  # a request that fails is counted, not fatal
             req.wall_s = time.perf_counter() - t0
             print(f"request {i} failed: {type(exc).__name__}: {exc}", file=sys.stderr)
+            if self.procs is not None:
+                raise  # the others wait in a collective for this process
         return req
 
     def gate_args(self) -> tuple:
@@ -173,11 +190,11 @@ class Resident(Kind):
         from shotgun_tpu_torch import cli
 
         aln = cli.create_alignment_from_reference(self.ref, path, self.device,
-                                                  *self.gate_args())
+                                                  *self.gate_args(), mesh=self.mesh)
         return aln.get_summary()
 
     def release(self) -> None:
-        self._table = self._table_geometry()
+        self._table = self._table_geometry() if self.mesh is None else None
         self.ref = None
 
     def _table_geometry(self) -> Optional[Tuple[int, int, int]]:
@@ -207,11 +224,19 @@ class Resident(Kind):
         return reads, time.perf_counter() - t0
 
     def launch_bytes(self, requests: List[Request]) -> Dict[str, List[int]]:
-        """The bytes of each H1 and H2 launch the requests made, in order:
-        one launch of each a batch of [batch, row stride] positions."""
+        """The bytes of each encode and H2 launch the requests made, in
+        order: one launch of each a batch of [batch, row stride] positions.
+        The encode is H1 ``encode_window`` at k <= 31 and H3
+        ``encode_words`` past it, where the stream takes the sort join.
+        Nothing under a mesh, whose launches the cell that runs one counts."""
+        if self.mesh is not None:
+            return {}
         lpad = row_stride(self.read_len, self.k)
-        h1 = h1_bytes(self.batch, lpad // 4, self.k, True,
-                      self.gates.min_kmer_quality is not None)
+        sums = self.gates.min_kmer_quality is not None
+        if self.k > reference.WORD_BASES:
+            h3 = h3_bytes(self.batch, lpad // 4, self.k, sums)
+            return {"encode_words": [h3] * sum(r.batches for r in requests)}
+        h1 = h1_bytes(self.batch, lpad // 4, self.k, True, sums)
         out: Dict[str, List[int]] = {"encode_window": [], "hash_probe": []}
         per_file: Dict[int, List[int]] = {}
         for req in requests:
@@ -241,8 +266,9 @@ class Resident(Kind):
 class Oneshot(Kind):
     def prepare(self) -> None:
         self.fasta = os.path.join(self.tmp, "genomes.fa")
-        gen.write_fasta(self.fasta, gen.Genomes(
-            self.descriptions, torch.from_numpy(self.codes), self.offsets))
+        if self.primary:
+            gen.write_fasta(self.fasta, gen.Genomes(
+                self.descriptions, torch.from_numpy(self.codes), self.offsets))
 
     def answer(self, path: str) -> dict:
         from shotgun_tpu_torch import cli
@@ -251,7 +277,7 @@ class Oneshot(Kind):
         ref = cli.dumpalign_reference(self.fasta, self.k, False,
                                       DEFAULT_SIMILARITY_THRESHOLD, self.device)
         aln = cli.create_alignment_from_reference(ref, path, self.device,
-                                                  *self.gate_args())
+                                                  *self.gate_args(), mesh=self.mesh)
         return aln.get_summary()
 
 
@@ -264,14 +290,18 @@ def _sync(device: torch.device) -> None:
 
 
 def window(kind: Kind, seconds: float) -> Tuple[List[Request], float]:
-    """Requests one after another until ``seconds`` have passed; the
-    window ends with its last request."""
+    """Requests one after another until ``seconds`` have passed (on
+    process 0's clock, in a multi-process run); the window ends with its
+    last request."""
     reqs: List[Request] = []
     with record_function(WINDOW_SPAN):
         t0 = time.perf_counter()
         while True:
             reqs.append(kind.request(len(reqs) + 1))
-            if time.perf_counter() - t0 >= seconds:
+            done = time.perf_counter() - t0 >= seconds
+            if kind.procs is not None:
+                done = kind.procs.agree(done)
+            if done:
                 break
         _sync(kind.device)
         return reqs, time.perf_counter() - t0
@@ -311,14 +341,18 @@ def compare(texts: List[Optional[str]], files: List[int], want: Dict[int, str]
 
 
 def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
-             device: torch.device, t_start: float) -> dict:
-    """One run of cell ``name``; the result line's object.  Raises
+             device: torch.device, t_start: float, procs: Optional[Procs] = None
+             ) -> Optional[dict]:
+    """One run of cell ``name``; the result line's object (None on a
+    process of a multi-process run other than 0).  Raises
     ``ForbiddenModules`` when the window leaves one loaded."""
     cell = load_cell(root, name)
     cuda = device.type == "cuda"
-    tmp = tempfile.mkdtemp(prefix="shotbench-")
+    tmp = tempfile.mkdtemp(prefix="shotbench-") if procs is None else procs.tmp
     try:
-        kind = KINDS[cell.traffic["kind"]](cell, seed, device, tmp)
+        kind = KINDS[cell.traffic["kind"]](cell, seed, device, tmp, procs)
+        if procs is not None:
+            procs.barrier()  # process 0's files are written
         t0 = time.perf_counter()
         warm = kind.request(0)
         _sync(device)
@@ -326,6 +360,8 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
         print("set-up steps (s): " + ", ".join(f"{n} {v:.3f}" for n, v in
                                                kind.setup_steps.items()),
               file=sys.stderr, flush=True)
+        if procs is not None:
+            procs.barrier()  # every process set up: the windows open together
         run = RunData(kind=cell.traffic["kind"], setup_s=time.perf_counter() - t_start)
         if trace:
             from shotgun_tpu_torch.utils.profiling import PROFILER
@@ -335,7 +371,15 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
             with profiler(cuda) as prof:
                 run.requests, run.window_s = window(kind, seconds)
             run.spans = {n: (s.seconds, s.calls) for n, s in PROFILER.stats.items()}
-            run.trace = read_trace(prof, os.path.join(tmp, "trace.json"))
+            part = "" if procs is None else f"_{procs.rank}"
+            run.trace = read_trace(prof, os.path.join(tmp, f"trace{part}.json"))
+            del prof
+        elif cuda and any(m.source == "device_trace" for m in cell.end_to_end):
+            with profiler(cuda, host=False) as prof:
+                run.requests, run.window_s = window(kind, seconds)
+            part = "" if procs is None else f"_{procs.rank}"
+            run.trace = read_device(prof, os.path.join(tmp, f"device{part}.json"),
+                                    run.window_s)
             del prof
         else:
             run.requests, run.window_s = window(kind, seconds)
@@ -347,21 +391,31 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
         bad = forbidden_loaded()
         if bad:
             raise ForbiddenModules(f"loaded after the window: {', '.join(bad)}")
-        if trace:
+        if trace and kind.primary:
             run.fill = kind.measure_fill()
         kind.release()
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
+        answers = [warm] + run.requests
+        cards = [(peak, run.trace.busy_s if run.trace is not None else None)]
+        if procs is not None:
+            # after every process has released the program's state
+            gathered = procs.gather((answers, cards[0]))
+            procs.close()
+            if not procs.primary:
+                return None
+            answers = [a for got, _ in gathered for a in got]
+            cards = [card for _, card in gathered]
         if trace:
             run.launches = kind.launch_bytes(run.requests)
-        answers = [warm] + run.requests
         t0 = time.perf_counter()
         checks = check(kind, answers)
         print(f"reference check {time.perf_counter() - t0:.3f} s over {len(answers)} "
               f"answers", file=sys.stderr, flush=True)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if procs is None:
+            shutil.rmtree(tmp, ignore_errors=True)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = m.read(run)
@@ -369,13 +423,17 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
             metrics[m.name] = {"value": value, "unit": m.unit}
     dev = {"platform": "gpu" if cuda else device.type,
            "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-           "count": cell.chips, "memory_peak_bytes": peak}
+           "count": cell.chips, "memory_peak_bytes": max(p for p, _ in cards)}
     result = {"correct": all(checks[n] <= LIMITS[n] for n in LIMITS),
               "attempted": len(answers),
               "failed": checks["failed_requests"],
               "metrics": metrics, "device": dev}
-    if run.trace is not None:
-        dev.update(busy_s=run.trace.busy_s, window_s=run.trace.window_s)
+    if trace and run.trace is not None:
+        dev.update(busy_s=sum(b for _, b in cards) / len(cards),
+                   window_s=run.trace.window_s)
+        if procs is not None:
+            dev["cards"] = [{"card": i, "busy_s": b, "memory_peak_bytes": p}
+                            for i, (p, b) in enumerate(cards)]
         result["breakdown"] = run.trace.breakdown()
     result["checks"] = {n: {"value": checks[n], "limit": LIMITS[n]} for n in LIMITS}
     return result

@@ -1,5 +1,5 @@
 """The window's wall time over the whole dumpalign -g runs completed in
-it (the window ends with its last run)."""
+it (the window ends with its last run), read in the traced run."""
 
 
 def read(run):

@@ -4,7 +4,12 @@ code), from the benchmark's own genomes and reads.
 
 It imports nothing of the program.  Its index is a sorted array of the
 distinct k-mer keys of the genomes with each key's genome set; a read's
-windows are looked up by binary search.  The rules (the reference tool's
+windows are looked up by binary search.  At k <= 31 a key is one int64
+(``window_keys``); past 31 bases a window is ceil(k / 31) int64 words,
+most significant first (``window_words``), the index holds the distinct
+words in lexicographic order, and a window's key is its words' rank in
+that order, found by an exact lexicographic search over every word (a
+miss ranks past every key).  The rules (the reference tool's
 ``Read.pseudo_align`` and ``PseudoAlignment.get_summary``):
 
 - a read whose mean raw quality byte is below the read gate is filtered:
@@ -43,6 +48,8 @@ import torch
 _I64_MAX = torch.iinfo(torch.int64).max
 #: reads classified per step
 READ_CHUNK = 1 << 16
+#: bases of a full word of a multi-word key
+WORD_BASES = 31
 
 
 def window_keys(codes: torch.Tensor, k: int) -> torch.Tensor:
@@ -57,20 +64,78 @@ def window_keys(codes: torch.Tensor, k: int) -> torch.Tensor:
     return key
 
 
+def window_words(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """[..., n] base codes (0..3) -> [..., n - k + 1, ceil(k / 31)] int64
+    words, most significant first: word i holds the window's bases
+    31 i .. min(31 i + 31, k) - 1, the first of them in its highest bits."""
+    w = codes.shape[-1] - k + 1
+    words = [window_keys(codes[..., a: a + w + min(WORD_BASES, k - a) - 1],
+                         min(WORD_BASES, k - a))
+             for a in range(0, k, WORD_BASES)]
+    return torch.stack(words, dim=-1)
+
+
 @dataclass
 class Index:
     """Distinct keys, ascending, and the genomes of each: genomes
     ``genome[start[i]: start[i] + gcount[i]]`` hold key ``keys[i]``, in
-    genome order."""
+    genome order.  With multi-word keys ``keys`` are the ranks 0 .. U - 1
+    of ``words``, the distinct [U, W] words in lexicographic order."""
 
     keys: torch.Tensor     # int64 [U]
     start: torch.Tensor    # int64 [U]
     gcount: torch.Tensor   # int64 [U]
     genome: torch.Tensor   # int64 [P]
     n_genomes: int
+    words: Optional[torch.Tensor] = None   # int64 [U, W], k > 31 only
 
 
 KeyMap = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _lex_order(words: torch.Tensor) -> torch.Tensor:
+    """The stable lexicographic order of the rows of [N, W] ``words``: a
+    stable sort by each word, least significant first."""
+    order = torch.arange(words.shape[0], device=words.device)
+    for j in reversed(range(words.shape[1])):
+        order = order[torch.sort(words[order, j], stable=True)[1]]
+    return order
+
+
+def _lex_less(rows: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """[N] whether row i of [N, W] ``rows`` lies before row i of
+    ``query`` in lexicographic order."""
+    less = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+    equal = torch.ones_like(less)
+    for j in range(rows.shape[1]):
+        less |= equal & (rows[:, j] < query[:, j])
+        equal &= rows[:, j] == query[:, j]
+    return less
+
+
+def word_ranks(index: Index, query: torch.Tensor) -> torch.Tensor:
+    """[..., W] words -> [...] their rank among ``index.words`` by an
+    exact lexicographic binary search; U (no key's rank) for a miss."""
+    table = index.words
+    u = table.shape[0]
+    q = query.reshape(-1, query.shape[-1])
+    lo = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    hi = torch.full_like(lo, u)
+    for _ in range(u.bit_length()):
+        mid = (lo + hi) // 2
+        less = _lex_less(table[mid.clamp(max=u - 1)], q)
+        active = lo < hi
+        lo = torch.where(active & less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    found = (lo < u) & (table[lo.clamp(max=u - 1)] == q).all(1)
+    return torch.where(found, lo, u).reshape(query.shape[:-1])
+
+
+def _window_keys(codes: torch.Tensor, k: int, key_map: KeyMap) -> torch.Tensor:
+    """The windows' keys: int64 [..., w] at k <= 31, words [..., w, W]
+    past it, each through ``key_map`` when given."""
+    keys = window_keys(codes, k) if k <= WORD_BASES else window_words(codes, k)
+    return keys if key_map is None else key_map(keys)
 
 
 def build_index(codes: torch.Tensor, offsets: Sequence[int], k: int,
@@ -85,20 +150,31 @@ def build_index(codes: torch.Tensor, offsets: Sequence[int], k: int,
         seq = codes[int(offsets[g]): int(offsets[g + 1])]
         if seq.numel() < k or k < 1:
             continue
-        key = window_keys(seq & 3, k)
         bad = torch.cumsum((seq > 3).to(torch.int64), 0)
         bad = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), bad])
         ok = (bad[k:] - bad[:-k]) == 0
-        key = key[ok]
+        key = _window_keys(seq & 3, k, None)[ok]
         keys_l.append(key if key_map is None else key_map(key))
-        gen_l.append(torch.full((key.numel(),), g, dtype=torch.int64, device=dev))
+        gen_l.append(torch.full((key.shape[0],), g, dtype=torch.int64, device=dev))
     n_genomes = len(offsets) - 1
     if not keys_l:
         empty = torch.zeros(0, dtype=torch.int64, device=dev)
-        return Index(empty, empty, empty, empty, n_genomes)
+        words = empty.view(0, 1) if k > WORD_BASES else None
+        return Index(empty, empty, empty, empty, n_genomes, words)
     all_keys = torch.cat(keys_l)
     del keys_l
-    all_keys, order = torch.sort(all_keys, stable=True)
+    words = None
+    if k <= WORD_BASES:
+        all_keys, order = torch.sort(all_keys, stable=True)
+    else:
+        order = _lex_order(all_keys)
+        words = all_keys[order]
+        del all_keys
+        new_word = torch.ones(words.shape[0], dtype=torch.bool, device=dev)
+        new_word[1:] = (words[1:] != words[:-1]).any(1)
+        words = words[new_word]
+        all_keys = torch.cumsum(new_word, 0) - 1
+        del new_word
     all_gen = torch.cat(gen_l)[order]
     del order, gen_l
     new_pair = torch.ones_like(all_keys, dtype=torch.bool)
@@ -109,7 +185,7 @@ def build_index(codes: torch.Tensor, offsets: Sequence[int], k: int,
     new_key[1:] = pair_keys[1:] != pair_keys[:-1]
     start = new_key.nonzero().reshape(-1)
     gcount = torch.diff(start, append=torch.tensor([pair_keys.numel()], device=dev))
-    return Index(pair_keys[new_key], start, gcount, pair_gen, n_genomes)
+    return Index(pair_keys[new_key], start, gcount, pair_gen, n_genomes, words)
 
 
 @dataclass
@@ -183,9 +259,9 @@ def classify_chunk(index: Index, codes: torch.Tensor, qual: torch.Tensor, k: int
         tally.stats["filtered_quality_reads"] += int(filtered.sum())
         tally.stats["unmapped_reads"] += int(live.sum())
         return
-    keys = window_keys(codes, k)
-    if key_map is not None:
-        keys = key_map(keys)
+    keys = _window_keys(codes, k, key_map)
+    if index.words is not None:
+        keys = word_ranks(index, keys)
     kq_ok = torch.ones((b, w), dtype=torch.bool, device=dev)
     n_qual = torch.zeros(b, dtype=torch.int64, device=dev)
     if gates.min_kmer_quality is not None:
@@ -285,6 +361,18 @@ def low_word(keys: torch.Tensor) -> torch.Tensor:
     """The control's key: only the low 32 bits of the 62-bit key (the last
     16 bases), as a probe that compares the table row's low word alone."""
     return keys & 0xFFFFFFFF
+
+
+def high_word(words: torch.Tensor) -> torch.Tensor:
+    """The control's key past 31 bases: only the most significant word
+    (the first 31 bases), as a probe that compares one word of a
+    multi-word key."""
+    return words[..., :1]
+
+
+def control_key(k: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The control's coarser key at ``k``."""
+    return low_word if k <= WORD_BASES else high_word
 
 
 def count_gaps(got: dict, want: dict) -> Dict[str, int]:

@@ -117,10 +117,11 @@ def test_metric_selection(tiny_root):
     layer = {m.name for m in load_cell(tiny_root, "strain.oneshot").per_layer}
     assert {m.name for m in shallow.end_to_end} == {"reads_per_s", "setup_s"}
     assert "sample_s_p90" in {m.name for m in shallow.per_layer}
-    assert {m.name for m in load_cell(tiny_root, "strain.oneshot").end_to_end} == {
-        "run_s", "setup_s"}
+    assert {(m.name, m.source) for m in load_cell(tiny_root, "strain.oneshot").end_to_end
+            } == {("kernel_ms_per_run", "device_trace"), ("setup_s", "host_clock")}
     assert layer == {"fasta_parse_ms.oneshot", "db_build_ms.oneshot",
-                     "table_build_ms.oneshot", "device_idle_share.oneshot"}
+                     "table_build_ms.oneshot", "device_idle_share.oneshot",
+                     "db_host_prep_ms.oneshot", "run_s.oneshot"}
 
 
 @pytest.mark.parametrize("rows,width,sums", [(1, 40, False), (7, 40, True),
@@ -155,6 +156,40 @@ def test_busy_union_matches_port_tool():
               [("kernel", 0, 10), ("gpu_memcpy", 5, 10), ("kernel", 30, 1),
                ("cpu_op", 0, 100), ("gpu_memset", 31, 0.5), ("kernel", 40, 2)]]
     assert yardstick.device_busy_us(events) == device_busy_us(events) == 18.5
+
+
+class _Profile:
+    """A profile that exports the given events as its Chrome trace."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def export_chrome_trace(self, path):
+        with open(path, "w") as fh:
+            json.dump({"traceEvents": self.events}, fh)
+
+
+def test_device_trace_of_an_untraced_window(tiny_root, tmp_path):
+    from shotbench.harness import Request, RunData
+    from shotbench.trace import read_device
+
+    ev = [dict(ph="X", cat="kernel", name="a", ts=0, dur=100),
+          dict(ph="X", cat="kernel", name="b", ts=50, dur=100),
+          dict(ph="X", cat="gpu_memcpy", name="Memcpy HtoD", ts=300, dur=40),
+          dict(ph="X", cat="gpu_memset", name="Memset", ts=320, dur=40),
+          dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel", ts=0, dur=999),
+          dict(ph="i", cat="kernel", name="c", ts=500)]
+    path = str(tmp_path / "device.json")
+    tr = read_device(_Profile(ev), path, 2.5)
+    assert not os.path.exists(path)
+    assert (tr.window_s, tr.busy_s, tr.kernel_busy_s) == (2.5, 210e-6, 150e-6)
+    assert tr.kernels == {"a": [100e-6], "b": [100e-6], "Memcpy HtoD": [40e-6],
+                          "Memset": [40e-6]}
+    read = {m.name: m.read for m in load_cell(tiny_root, "strain.oneshot").end_to_end}
+    run = RunData(kind="oneshot", setup_s=1.0, window_s=2.5, trace=tr,
+                  requests=[Request(0, 1, 1), Request(0, 1, 1)])
+    assert read["kernel_ms_per_run"](run) == pytest.approx(0.075)
+    assert read["kernel_ms_per_run"](RunData(kind="oneshot", setup_s=1.0)) is None
 
 
 def test_row_stride_matches_port():

@@ -1,6 +1,7 @@
 """The traced window: a ``torch.profiler`` trace of it, read into device
 busy time, kernel times by name and idle gaps by what the host was
-doing."""
+doing.  A cell with an end-to-end metric from the device trace also has
+its untraced window profiled, on the device alone (``read_device``)."""
 
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ TOP = 10
 class Trace:
     window_s: float
     busy_s: float
+    kernel_busy_s: float                 # the kernels' alone, without copies or memsets
     kernels: Dict[str, List[float]]      # device event name -> seconds of each
     idle_by_host: Dict[str, float]       # host activity -> idle device seconds
 
@@ -38,11 +40,47 @@ class Trace:
                 "idle_gaps": [[n[:120], s] for n, s in gaps[:TOP]]}
 
 
-def profiler(cuda: bool):
+def profiler(cuda: bool, host: bool = True):
+    """A profile of the host's and the device's events, or of the
+    device's alone (``host`` False: no host op is recorded)."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    acts = [ProfilerActivity.CPU] if host else []
+    if cuda:
+        acts.append(ProfilerActivity.CUDA)
     return profile(activities=acts)
+
+
+def _events(prof, path: str) -> List[dict]:
+    """The complete events of ``prof``'s Chrome trace, written to ``path``
+    and removed after."""
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.remove(path)
+    return [e for e in events if e.get("ph") == "X"]
+
+
+def _busy_us(device: List[dict], w0: float, w1: float) -> float:
+    """Microseconds of ``[w0, w1]`` in which one of ``device`` ran."""
+    busy = merge_intervals((max(e["ts"], w0), min(e["ts"] + e["dur"], w1)) for e in device)
+    return sum(b - a for a, b in busy)
+
+
+def read_device(prof, path: str, window_s: float) -> Trace:
+    """The ``Trace`` of a profile of the device alone around a window of
+    ``window_s`` seconds: every device event in it, no idle gaps."""
+    device = [e for e in _events(prof, path) if e.get("cat") in DEVICE_CATS]
+    kernels: Dict[str, List[float]] = defaultdict(list)
+    for e in device:
+        kernels[e["name"]].append(e["dur"] / 1e6)
+    inf = float("inf")
+    return Trace(window_s=window_s, busy_s=_busy_us(device, -inf, inf) / 1e6,
+                 kernel_busy_s=_busy_us([e for e in device if e["cat"] == "kernel"],
+                                        -inf, inf) / 1e6,
+                 kernels=dict(kernels), idle_by_host={})
 
 
 def _innermost(host: List[Tuple[float, float, str]], points: List[float]) -> List[str]:
@@ -66,13 +104,7 @@ def _innermost(host: List[Tuple[float, float, str]], points: List[float]) -> Lis
 def read_trace(prof, path: str) -> Trace:
     """The ``Trace`` of the window span in ``prof``'s Chrome trace, written
     to ``path`` and removed after."""
-    prof.export_chrome_trace(path)
-    try:
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    finally:
-        os.remove(path)
-    spans = [e for e in events if e.get("ph") == "X"]
+    spans = _events(prof, path)
     win = max((e for e in spans if e.get("name") == WINDOW_SPAN), key=lambda e: e["dur"])
     w0, w1 = win["ts"], win["ts"] + win["dur"]
     device = [e for e in spans if e.get("cat") in DEVICE_CATS
@@ -82,6 +114,7 @@ def read_trace(prof, path: str) -> Trace:
         kernels[e["name"]].append(e["dur"] / 1e6)
     busy = merge_intervals((max(e["ts"], w0), min(e["ts"] + e["dur"], w1)) for e in device)
     busy_us = sum(b - a for a, b in busy)
+    kernel_us = _busy_us([e for e in device if e["cat"] == "kernel"], w0, w1)
     gaps, cur = [], w0
     for a, b in busy:
         if a > cur:
@@ -97,5 +130,6 @@ def read_trace(prof, path: str) -> Trace:
     for (a, b), name in zip(gaps, _innermost(host, mids)):
         idle[name] += (b - a) / 1e6
     return Trace(window_s=(w1 - w0) / 1e6, busy_s=busy_us / 1e6,
-                 kernels=dict(kernels), idle_by_host=dict(idle))
+                 kernel_busy_s=kernel_us / 1e6, kernels=dict(kernels),
+                 idle_by_host=dict(idle))
 

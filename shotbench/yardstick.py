@@ -1,11 +1,12 @@
 """The benchmark's frozen arithmetic: device busy time from a trace, the
-bytes kernels H1 and H2 must move, the bucket hash they are counted
+bytes kernels H1, H2 and H3 must move, the bucket hash they are counted
 with, the card's published peak, and the tail statistic of the metrics.
 
 Copied from the port's measuring tools so that a later change to the
 program cannot move the yardstick: ``device_busy_us`` from
-``shotgun_tpu_torch/tools/profile_align.py``, ``h1_bytes`` from
-``tools/bench_encode.py``, ``h2_bytes`` from ``tools/bench_probe.py``,
+``shotgun_tpu_torch/tools/profile_align.py``, ``h1_bytes`` and
+``h3_bytes`` from ``tools/bench_encode.py``, ``h2_bytes`` from
+``tools/bench_probe.py``,
 ``mix32``/``split_key`` from ``ops/encode.py``.  Nothing here imports
 the program.
 """
@@ -72,6 +73,17 @@ def h1_bytes(rows: int, packed_width: int, k: int, keys: bool, sums: bool) -> in
     length = 4 * packed_width
     nwin = length - k + 1
     return (rows * (packed_width + 8 * nwin) * keys
+            + rows * (length + 4 * nwin) * sums)
+
+
+def h3_bytes(rows: int, packed_width: int, k: int, sums: bool) -> int:
+    """Bytes H3 ``encode_words`` must move for [rows, 4 * packed_width]
+    positions: packed codes in and ceil(k / 31) int64 words out, and with
+    ``sums`` quality bytes in and int32 sums out."""
+    length = 4 * packed_width
+    nwin = length - k + 1
+    words = -(-k // 31)
+    return (rows * (packed_width + 8 * words * nwin)
             + rows * (length + 4 * nwin) * sums)
 
 
