@@ -15,8 +15,10 @@ Phases, one line each:
      once, timed; the loaded native library must be the port's;
   3. database build on the device against the host build, both timed, on
      the phase-5 genomes (48 Mbp) and the phase-6 strain panel: equal
-     distinct keys, genome counts and set membership per key; then the
-     device assembly of the 48 Mbp 16-slot hash table, timed;
+     distinct keys, genome counts and set membership per key, and on the
+     strain panel also at each k of WORD_BUILD_KS (multi-word keys, every
+     word); then the device assembly of the 48 Mbp 16-slot hash table,
+     timed;
   4. kernels against their plain PyTorch versions on the card, at the main
      path's shapes (B = the card's auto batch of its N_READS reads, 65,536;
      row stride 160, k = 31, the
@@ -33,9 +35,11 @@ Phases, one line each:
      keys) at every k of WORD_KS on the main path's batch and on ragged
      rows (a row longer than a tile among them), at k = L, and at
      k in H3_LONG_KS (1000 to 5000) on rows of 1024 to 5120 bases, keys
-     only and with sums, one H3 launch and no H1 launch a call: exact
-     equality, and the time of each (H3 at k = 75 and 150) beside its
-     plain version, its bytes and its byte bound at 3.35 TB/s;
+     only and with sums, one H3 launch and no H1 launch a call, and H3 on
+     the packed 48 Mbp genome as one row at each k of WORD_BUILD_KS, as
+     the device build runs it past 31 bases: exact equality, and the time
+     of each (H3 at k = 75 and 150, and on the genome row at k = 75)
+     beside its plain version, its bytes and its byte bound at 3.35 TB/s;
   5. the main path: `-t dumpalign -g -k 31 --reads` through the port's CLI,
      in process, on 48 random 1 Mbp genomes (about 48M distinct 31-mers,
      above the card's auto crossover: the database builds on the device,
@@ -88,11 +92,17 @@ Phases, one line each:
         package's host product, both timed, and dumpref --filter-similar
         on the panel through the CLI, which must drop genomes;
   9. multi-word keys at size: `-t dumpalign -g -k 75 --reads` on the strain
-     panel of phase 6 (host build, word sort join): once on phase 6's reads
-     (all 'I'), and once on the same reads with random qualities (from
-     --seed, raw bytes uniform in WORD_QUAL) and --min-kmer-quality
-     WORD_MKQ, which filters about half the windows: H3 launched once a
-     batch, H1 and H2 not, the statistics sum to the reads with unique and ambiguous reads
+     panel of phase 6 (device build, word sort join): once on phase 6's
+     reads (all 'I'), once more on them with the host build
+     (SHOTGUN_TPU_DEVICE_BUILD=0; summary byte-equal), and once on the
+     same reads with random qualities (from --seed, raw bytes uniform in
+     WORD_QUAL) and --min-kmer-quality WORD_MKQ, which filters about half
+     the windows: H3 launched once a batch, and once more on the genome
+     as one row where the device builds (mode "k=75, keys, one row"), H1
+     and H2 not; the profile's sort_join_device and sort_join_rows once
+     a batch (the table's rows and every read's windows in the rows) and
+     db_build_words 3 where the device builds; the statistics sum to the
+     reads with unique and ambiguous reads
      both present, the gated run's filtered_quality_kmers equal to the
      windows whose quality sum numpy finds below the gate, and its mapped
      counts other than the ungated run's; then reference -k 75 -> align
@@ -192,8 +202,8 @@ device build's window encode and the batches, with the MKQ gate, so keys
 and sums together); each timed mode carries its own main-path launches.
 Kernel H3 (encode_words) replaces the quality sums at k > 31 with the
 multi-word encode in front of them; its path is phase 9's MKQ run (k =
-75), whose H3 launches are its count, and each of its modes carries that
-run's launches of its mode.
+75: the device build's genome row and the batches), whose H3 launches are
+its count, and each of its modes carries that run's launches of its mode.
 Kernel H2's entry likewise gives the 16-slot table (the main path's) and
 the 4-slot one (launched on the `hash` routes) as two modes.  Phase 12
 adds a mode to each: H1 on the 100 Mbp genome row and H2 on its 2^25-bucket
@@ -269,6 +279,9 @@ WORD_KS = (32, 35, 62, 63, 64, 75, 93, 150)
 K_WORDS = 75
 K_WORDS_LONG = 150
 H3_LONG_KS = (1000, 1024, 4100, 5000)
+#: the multi-word device builds of phase 3 (the strain panel) and H3's
+#: genome-row checks of phase 4: Kraken 2's default k, and phase 9's
+WORD_BUILD_KS = (35, K_WORDS)
 #: phase 9's gated run: raw quality bytes uniform in WORD_QUAL (mean 53),
 #: and an MKQ gate at that mean, so about half the 75-base windows fail it
 WORD_QUAL = (33, 73)
@@ -634,6 +647,18 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
     err_qual = max_abs_err(kq, kq_p)
     del row_keys, row_keys_p, kq, kq_p
     n_word, err_word = h3_checks(rng, packed_d, qual_d, device)
+    # the device build's shape past 31 bases: H3 on the genome as one row
+    before = (encode_words.launches, encode_window.launches)
+    for k in WORD_BUILD_KS:
+        err_word = max(err_word, max_abs_err(list(encode_words(row_d, k)[0]),
+                                             list(encode_words_plain(row_d, k)[0])))
+    torch.cuda.synchronize()
+    if (encode_words.launches - before[0], encode_window.launches - before[1]) != (
+            len(WORD_BUILD_KS), 0):
+        raise AssertionError("H3 on the genome row: launches H3 "
+                             f"{encode_words.launches - before[0]}, H1 "
+                             f"{encode_window.launches - before[1]}")
+    n_word += len(WORD_BUILD_KS)
 
     if max(err_edge, err_enc, err_qual, err_h2_edge, err_word) != 0:
         raise AssertionError(f"kernel != plain: encode edges {err_edge}, encode "
@@ -706,6 +731,12 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
                          lambda k=k, q=q: encode_words(packed_d, k, q),
                          lambda k=k, q=q: encode_words_plain(packed_d, k, q),
                          nbytes - b * (LPAD // 4) - b * LPAD * (q is not None)))
+    row_bytes = h3_bytes(1, row_d.shape[1], K_WORDS, False)
+    h3_modes.append((f"[1, {row_d.shape[1] * 4}] (genome as one row)",
+                     f"k={K_WORDS}, keys, one row", row_bytes,
+                     lambda: encode_words(row_d, K_WORDS),
+                     lambda: encode_words_plain(row_d, K_WORDS),
+                     row_bytes - row_d.shape[1]))
 
     def timed_modes(cases):
         modes = []
@@ -761,14 +792,15 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
         "tile long; keys, sums, both) and at B=%d L=%d k=%d, and on the genome as "
         "one row of %d bases; H3 at %d cases, one H3 launch and no H1 launch each (k %s "
         "on the batch, 1 and 7 ragged rows and a row a tile long; k = L; k %s on rows of "
-        "1024 to 5120 bases; keys, keys and sums); "
+        "1024 to 5120 bases; keys, keys and sums; k %s on the genome as one row); "
         "H2 at %d edge cases (4 and 16 slots; stash 0/1/64 "
         "rows; n %s) and on one batch of B=%d reads (and one window more) on the "
         "device-assembled 16-slot table of phase 3 and on the strain panel's "
         "4-slot table (host build %.3f s; %s). Times (launches queued behind "
         "a sleep kernel, outputs rotated past the L2): %s" % (
             n_edge, b, LPAD, K, row_d.shape[1] * 4, n_word,
-            "/".join(map(str, WORD_KS)), "/".join(map(str, H3_LONG_KS)), n_h2_edge,
+            "/".join(map(str, WORD_KS)), "/".join(map(str, H3_LONG_KS)),
+            "/".join(map(str, WORD_BUILD_KS)), n_h2_edge,
             "/".join(map(str, H2_EDGE_N)), b, table4_s, asm4,
             "; ".join("%s %s %s %.4f ms vs plain %.4f ms, %d B, bound %.4f ms, "
                       "%.1f%% of it%s" % (
@@ -833,11 +865,14 @@ def counted_run(argv, env=None, out_path=None, stream=True):
 
 
 def check_build(dev: dict, host, what: str) -> None:
-    """The device build equals the host index: distinct keys, genome
-    counts, and each key's set membership."""
-    keys = dev["keys"].cpu().numpy()
-    want = (host.kmer_hi.astype(np.int64) << 32) | host.kmer_lo.astype(np.int64)
-    if not np.array_equal(keys, want):
+    """The device build equals the host index: distinct keys (every word
+    past 31 bases), genome counts, and each key's set membership."""
+    from shotgun_tpu_torch.ops.probe_sort import host_key_words
+
+    got = dev["words"] if "words" in dev else (dev["keys"],)
+    want = host_key_words(host.kmer_words, host.k)
+    if len(got) != len(want) or not all(
+            np.array_equal(g.cpu().numpy(), w) for g, w in zip(got, want)):
         raise AssertionError(f"{what}: device-built keys != host keys")
     if not np.array_equal(dev["gc"].cpu().numpy(), host.genome_counts()):
         raise AssertionError(f"{what}: device genome counts != host")
@@ -924,6 +959,25 @@ def phase_db_build(panels, device):
                      f"device {time.perf_counter() - t0:.3f} s")
         parts.append(part)
         del built
+    # multi-word keys: the last panel at each k of WORD_BUILD_KS
+    for k in WORD_BUILD_KS:
+        t0 = time.perf_counter()
+        words_host = KmerReference(k, genomes).index
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = device_build_tables(genomes, k, device)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        if built is None or len(built.get("words", ())) != -(-k // 31):
+            raise AssertionError(f"{what} k={k}: the device build refused the panel "
+                                 "or gave no multi-word table")
+        check_build(built, words_host, f"{what} k={k}")
+        parts.append(f"{what} at k={k} ({len(built['words'])} words, "
+                     f"{words_host.num_kmers} distinct k-mers, "
+                     f"{built['num_sets'] - genomes.num_records} multi sets): device "
+                     f"{dev_s:.3f} s vs host {host_s:.3f} s")
+        del built, words_host
     say("phase 3 db build device == host (keys, genome counts, membership): "
         + "; ".join(parts))
     return table, host
@@ -1283,29 +1337,48 @@ def low_quality_windows(qual: np.ndarray, k: int, mkq: int) -> int:
 def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
                 qual: np.ndarray) -> dict:
     """Phase 9: the strain panel at k = K_WORDS (multi-word keys) through
-    the CLI, held against its own invariants, the gate's count from numpy,
-    the file round trip and the CPU; ``fq_q`` holds ``fq``'s reads with
-    the qualities ``qual`` and ``fq_q_head`` its first BATCH reads.
-    Returns each run's kernel launches, and the MKQ run's H3 launches by
-    mode."""
-    from shotgun_tpu_torch.ops.encode import encode_words
+    the CLI, held against its own invariants, the host build, the gate's
+    count from numpy, the file round trip and the CPU; ``fq_q`` holds
+    ``fq``'s reads with the qualities ``qual`` and ``fq_q_head`` its first
+    BATCH reads.  Returns each run's kernel launches, and the MKQ run's H3
+    launches by mode."""
+    from shotgun_tpu_torch.ops.encode import encode_words, word_spans
+    from shotgun_tpu_torch.utils.profiling import PROFILER
 
     k = str(K_WORDS)
     import torch
 
     batches = -(-N_READS // auto_batch(N_READS, torch.device("cuda", 0)))
     gate = ["--min-kmer-quality", str(WORD_MKQ)]
-    runs = (("no gate", fq, []), (f"random quality, MKQ {WORD_MKQ}", fq_q, gate))
-    outs, parts, by_path = [], [], {}
-    for name, reads, flags in runs:
+    host_build = {"SHOTGUN_TPU_DEVICE_BUILD": "0"}
+    runs = (("no gate", fq, [], {}), ("no gate, host build", fq, [], host_build),
+            (f"random quality, MKQ {WORD_MKQ}", fq_q, gate, {}))
+    outs, parts, by_path, joins = [], [], {}, []
+    for name, reads, flags, env in runs:
         out, st, launches, wall, peak = counted_run(
-            ["-t", "dumpalign", "-g", fa, "-k", k, "--reads", reads] + flags)
-        # the device build declines k > 31 (stage db_build_device, empty),
-        # and the host builds
-        if "db_build" not in st or st.get("db_build_device", 0.0) > 0.1:
-            raise AssertionError(f"k={k} {name}: not the host build: {st}")
-        check_word_launches(launches, f"k={k} {name}", batches)
+            ["-t", "dumpalign", "-g", fa, "-k", k, "--reads", reads] + flags, env)
+        counters = {n: (s.calls, s.items) for n, s in PROFILER.stats.items()}
+        # the panel is inside the card's device-build window: the device
+        # builds unless told not to, with one H3 launch on the genome row
+        device = not env
+        stage = "db_build_device" if device else "db_build"
+        if stage not in st or ("db_build" if device else "db_build_device") in st:
+            raise AssertionError(f"k={k} {name}: not the {stage} stage: {st}")
+        check_word_launches(launches, f"k={k} {name}", batches + device)
         by_mode = dict(encode_words.launches_by_mode)
+        mode = f"k={k}, " + ("keys+sums" if flags else "keys")
+        want_modes = {mode: batches, **({f"k={k}, keys, one row": 1} if device else {})}
+        if by_mode != want_modes:
+            raise AssertionError(f"k={k} {name}: H3 launches by mode {by_mode}, "
+                                 f"want {want_modes}")
+        # the device phase and the counters: once a batch, and the build's
+        # words once where the device builds
+        want_words = (1, len(word_spans(K_WORDS))) if device else None
+        if (PROFILER.stats["sort_join_device"].calls != batches
+                or counters["sort_join_rows"][0] != batches
+                or counters.get("db_build_words") != want_words):
+            raise AssertionError(f"k={k} {name}: profile {counters}")
+        joins.append((name, counters["sort_join_rows"][1]))
         stats = json.loads(out)["Statistics"]
         mapped = [stats[key] for key in ("unique_mapped_reads", "ambiguous_mapped_reads",
                                          "unmapped_reads")]
@@ -1313,11 +1386,15 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
             raise AssertionError(f"k={k} {name}: implausible statistics {stats}")
         outs.append((json.loads(out), mapped))
         by_path[f"k={k} strains dumpalign -g, {name}"] = launches
-        parts.append("%s: wall %.3f s (fasta %.3f s, host build %.3f s, stream %.3f s "
-                     "= %.0f reads/s aligned), peak device memory %d B, launches %s, "
-                     "%s" % (name, wall, st.get("fasta_parse", 0.0), st["db_build"],
-                             st["stream_align"], N_READS / st["stream_align"], peak,
-                             launches, stats))
+        parts.append("%s: wall %.3f s (fasta %.3f s, %s %.3f s, stream %.3f s "
+                     "= %.0f reads/s aligned, sort_join_device %.3f s), peak device "
+                     "memory %d B, launches %s, %s" % (
+                         name, wall, st.get("fasta_parse", 0.0), stage, st[stage],
+                         st["stream_align"], N_READS / st["stream_align"],
+                         st["sort_join_device"], peak, launches, stats))
+    if outs[1][0] != outs[0][0]:
+        raise AssertionError(f"k={k}: the device build's summary != the host build's")
+    outs.pop(1)
     # the gate counts each window below it, and filtering them moves reads
     want = low_quality_windows(qual, K_WORDS, WORD_MKQ)
     got = outs[1][0]["Statistics"]["filtered_quality_kmers"]
@@ -1331,6 +1408,17 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
     kdb, aln = os.path.join(tmp, "s75.kdb"), os.path.join(tmp, "s75.aln")
     _, ref_st, _, ref_wall, _ = counted_run(
         ["-t", "reference", "-g", fa, "-k", k, "-r", kdb], stream=False)
+    # each join sorts the table's rows and the batch's windows: every read's
+    # READ_LEN - k + 1 at least
+    from shotgun_tpu_torch.reference import KmerReference
+
+    table_rows = KmerReference.load(kdb, device="cpu").index.num_kmers
+    for name, rows in joins:
+        if rows - batches * table_rows < N_READS * (READ_LEN - K_WORDS + 1):
+            raise AssertionError(f"k={k} {name}: sort_join_rows {rows} for "
+                                 f"{batches} joins of {table_rows} table rows")
+    parts.append("the joins' rows: %s (table %d rows)" % (", ".join(
+        "%s %d" % (name, rows) for name, rows in joins), table_rows))
     _, st, launches, wall, peak = counted_run(["-t", "align", "-r", kdb, "--reads", fq,
                                                "-a", aln])
     check_word_launches(launches, f"k={k} align -r", batches)
@@ -1365,9 +1453,10 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
                  f"CPU's (plain versions, {cpu_s:.3f} s), {head_got} windows filtered")
     os.remove(kdb)
     os.remove(aln)
-    say("phase 9 multi-word keys, k=%s on the strain panel (%d reads): host build + "
-        "word sort join, H3 launched once a batch (%d), H1 and H2 not, statistics "
-        "plausible, the MKQ gate's "
+    say("phase 9 multi-word keys, k=%s on the strain panel (%d reads): device build "
+        "(== the host build's summary) + word sort join, H3 launched once a batch (%d) "
+        "and once on the genome row, H1 and H2 not, the profile's join and counters "
+        "once a batch, statistics plausible, the MKQ gate's "
         "count == numpy's and its reads moved, dumpalign -a == -r --reads == -g; %s" % (
             k, N_READS, batches, "; ".join(parts)))
     return by_path, by_mode

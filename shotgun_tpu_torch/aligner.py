@@ -67,7 +67,7 @@ from shotgun_tpu_torch.parallel.table_sharded import (
 from shotgun_tpu_torch.reference import PROBE_ENV, KDBFormatError, KmerReference
 from shotgun_tpu_torch.routes import device_routes
 from shotgun_tpu_torch.utils.device import resolve_device, upload
-from shotgun_tpu_torch.utils.profiling import phase
+from shotgun_tpu_torch.utils.profiling import PROFILER, phase
 
 _INF = np.iinfo(np.int64).max
 
@@ -532,10 +532,13 @@ class PseudoAlignment:
     def _finish_run(self, carry: FoldCarry, n_batches: int,
                     lists: List[StoreLists], ids: Optional[Sequence[str]]) -> None:
         """The run's one fetch of the carry (which also completes the
-        lists' copies), the read store, then the host totals: a duplicate
+        lists' copies, and the device phases ``PROFILER.settle`` then
+        reads), the read store, then the host totals: a duplicate
         read id raises before any total moves, as in the JAX package."""
         with phase("carry_fetch"):
             host = FoldCarry(*(t.cpu().numpy() for t in carry))
+        # the fetch drained the stream: the batches' device phases are done
+        PROFILER.settle()
         if lists:
             with phase("read_store"):
                 self._store_lists(lists, ids)

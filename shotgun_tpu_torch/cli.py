@@ -7,7 +7,8 @@ validation, defaulting quirks, error strings and exit codes, and its
 files (``.kdb``, ``.aln``).  Databases are built on the host, except for
 ``dumpalign -g``, which builds on the device for genomes inside the
 device's window (``routes.device_routes``: 4-64 Mbp off a card, the JAX
-package's) as the JAX package's does (``dumpalign_reference``): only
+package's) as the JAX package's does (``dumpalign_reference``), and also
+past 31 bases, where the JAX package's builds on the host: only
 dumpalign never needs the host postings.  Any k >= 1 aligns (k > 31 by
 the sort join of multi-word keys); at k < 1 no read maps.
 ``dumpalign -r/-g`` runs over a device mesh when the environment asks for

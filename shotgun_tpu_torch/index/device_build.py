@@ -12,11 +12,15 @@ builder's.
 
   1. host: 2-bit pack of the genome codes and the list of N runs
      (``io.native.pack2``, numpy without the native library);
-  2. window keys by kernel H1 over the packed genome as one row; a window
-     is valid when it holds no N (an ``index_add_`` of +1/-1 run deltas,
-     then a prefix sum) and crosses no record start;
-  3. one stable sort of the valid keys: windows arrive in genome order,
-     so records ascend inside each key group;
+  2. window keys over the packed genome as one row -- at k <= 31 one
+     int64 key a window by kernel H1, at k > 31 the ceil(k / 31) int64
+     words of ``ops.encode.word_spans`` by kernel H3 (``encode_words``);
+     a window is valid when it holds no N (an ``index_add_`` of +1/-1 run
+     deltas, then a prefix sum) and crosses no record start;
+  3. one stable sort of the valid keys, or at k > 31 a chain of stable
+     sorts, least significant word first: windows arrive in genome
+     order, so records ascend inside each key group, and a group ends
+     where any word changes;
   4. per group, with segmented sums (a prefix sum minus the group's
      base): the genome count (distinct records) and, for groups of two
      or more records, two 32-bit set hashes summed over the records;
@@ -26,10 +30,11 @@ builder's.
 Set ids may be numbered otherwise than the JAX package's; membership per
 key is the same.  A hash collision cannot corrupt the output: every
 multi group's genome count must equal the number of distinct records of
-its set, which two merged sets exceed.  Where the JAX build returns None
-and its callers build on the host, so does this one: k > 31, more than
-``R_CAP`` records, more than ``NRUNS_CAP`` - 1 N runs, more than ``SMAX``
-multi sets or ``PMAX`` multi pairs, or a collision.
+its set, which two merged sets exceed.  The build returns None, and its
+callers build on the host, past ``R_CAP`` records, ``NRUNS_CAP`` - 1 N
+runs, ``SMAX`` multi sets or ``PMAX`` multi pairs, or on a collision, as
+the JAX build does; the JAX build also returns None past 31 bases, and
+this one takes any k.
 
 Unlike the JAX build, the table keeps one row per distinct key (the
 invalid windows and repeats are dropped here, not carried as dead rows),
@@ -54,10 +59,18 @@ from shotgun_tpu_torch.index.hashtable import (
     first_buckets as _first_buckets,
     slots_fit,
 )
-from shotgun_tpu_torch.ops.encode import M32, encode_window, mix32, pack_codes_2bit, split_key
+from shotgun_tpu_torch.ops.encode import (
+    M32,
+    MAX_K,
+    encode_words,
+    mix32,
+    pack_codes_2bit,
+    split_key,
+    word_spans,
+)
 from shotgun_tpu_torch.ops.probe_sort import host_key_words
 from shotgun_tpu_torch.routes import JAX_ROUTES, device_routes
-from shotgun_tpu_torch.utils.profiling import phase
+from shotgun_tpu_torch.utils.profiling import PROFILER, phase
 
 #: record-count cap: a (set, record) pair packs as set * R_CAP + record
 R_CAP = 4096
@@ -124,12 +137,14 @@ def _upload(genomes, codes2: np.ndarray, runs: np.ndarray, device: torch.device
 
 
 def _valid_windows(g: int, k: int, packed: torch.Tensor, runs_d: torch.Tensor,
-                   rec_starts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(keys int64, records int32) of the windows that hold no N and
+                   rec_starts: torch.Tensor
+                   ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """(key words int64, records int32) of the windows that hold no N and
     cross no record start, in genome order."""
     device = packed.device
     w = g - k + 1
-    keys = encode_window(packed[None], k)[0][0, :w]
+    # one word by kernel H1 at k <= 31, else ceil(k / 31) by kernel H3
+    words = tuple(x[0, :w] for x in encode_words(packed[None], k)[0])
 
     one = torch.ones(runs_d.shape[0], dtype=torch.int32, device=device)
     delta = torch.zeros(g + 1, dtype=torch.int32, device=device)
@@ -144,23 +159,38 @@ def _valid_windows(g: int, k: int, packed: torch.Tensor, runs_d: torch.Tensor,
     rec.index_add_(0, rec_starts, torch.ones_like(rec_starts, dtype=torch.int32))
     rec = torch.cumsum(rec, 0, dtype=torch.int32)
     ok &= rec[:w] == rec[k - 1:]
-    return keys[ok], rec[:w][ok]
+    return tuple(x[ok] for x in words), rec[:w][ok]
+
+
+def _sort_words(words: Tuple[torch.Tensor, ...]
+                ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """(the words in key order, the permutation): stable sorts by each
+    word, least significant first, so equal keys keep their order."""
+    order = None
+    for x in reversed(words):
+        top, by = torch.sort(x if order is None else x[order], stable=True)
+        order = by if order is None else order[by]
+    # the last sort was by the most significant word
+    return (top,) + tuple(x[order] for x in words[1:]), order
 
 
 def _compute(g: int, r: int, k: int, packed: torch.Tensor, runs_d: torch.Tensor,
              rec_starts: torch.Tensor) -> Optional[dict]:
-    """Steps 2-5 of the module doc on the device: the table (``keys``,
-    ``sid``, ``gc``), the multi sets' packed (set, record) pairs ``pk``
-    (set * R_CAP + record) and their count ``n_multi``; None past SMAX,
-    PMAX or on a hash collision.  The counts the checks need are read on
-    the way (each waits for the device)."""
-    keys_v, rec_v = _valid_windows(g, k, packed, runs_d, rec_starts)
+    """Steps 2-5 of the module doc on the device: the table (``keys`` at
+    k <= 31, else ``words``; ``sid``, ``gc``), the multi sets' packed (set,
+    record) pairs ``pk`` (set * R_CAP + record) and their count
+    ``n_multi``; None past SMAX, PMAX or on a hash collision.  The counts
+    the checks need are read on the way (each waits for the device)."""
+    words_v, rec_v = _valid_windows(g, k, packed, runs_d, rec_starts)
     device = packed.device
-    sk, order = torch.sort(keys_v, stable=True)
+    sw, order = _sort_words(words_v)
+    del words_v
     rec = rec_v[order].to(_I64)
-    n = sk.numel()
+    n = rec.numel()
     first = torch.ones(n, dtype=torch.bool, device=device)
-    first[1:] = sk[1:] != sk[:-1]
+    first[1:] = sw[0][1:] != sw[0][:-1]
+    for x in sw[1:]:
+        first[1:] |= x[1:] != x[:-1]
     starts = first.nonzero().squeeze(1)
     u = starts.numel()
     ends = torch.empty_like(starts)
@@ -205,7 +235,9 @@ def _compute(g: int, r: int, k: int, packed: torch.Tensor, runs_d: torch.Tensor,
         if not bool((size[midx] == gc[mg]).all()):
             return None
         sid[mg] = r + midx
-    return dict(keys=sk[starts], sid=sid.to(torch.int32), gc=gc.to(torch.int32),
+    table = (dict(keys=sw[0][starts]) if k <= MAX_K
+             else dict(words=tuple(x[starts] for x in sw)))
+    return dict(table, sid=sid.to(torch.int32), gc=gc.to(torch.int32),
                 pk=pk, n_multi=n_multi)
 
 
@@ -223,7 +255,7 @@ def _fetch(computed: dict, r: int) -> dict:
         sidx, recx = pairs // R_CAP, pairs % R_CAP
         np.bitwise_or.at(set_masks, (r + sidx, recx >> 3),
                          np.uint8(1) << (recx & 7).astype(np.uint8))
-    return dict(out, num_kmers=out["keys"].numel(), num_sets=num_sets,
+    return dict(out, num_kmers=out["sid"].numel(), num_sets=num_sets,
                 set_masks=set_masks)
 
 
@@ -232,8 +264,11 @@ def device_build_tables(genomes, k: int, device: torch.device) -> Optional[dict]
     (``io.packing.GenomeArrays``) on ``device``, in four steps:
     ``_host_prep``, ``_upload``, ``_compute`` and ``_fetch``.
 
-    Returns a dict with tensors on ``device`` ``keys`` (int64 [U],
-    ascending, distinct), ``sid`` and ``gc`` (int32 [U]); host
+    Returns a dict with tensors on ``device``: at k <= 31 ``keys`` (int64
+    [U], ascending, distinct), at k > 31 ``words`` in its place (a tuple
+    of ceil(k / 31) int64 [U], most significant first, as
+    ``ops.probe_sort.SortedTableDev`` holds them; the rows in key order,
+    distinct); ``sid`` and ``gc`` (int32 [U]); host
     ``set_masks`` (uint8 [num_sets, ceil(R/8)]: rows [0, R) the singleton
     sets {r}, rows [R, num_sets) the multi sets); ints ``num_kmers``,
     ``num_sets``, ``num_records``, ``num_windows`` (g - k + 1); and
@@ -241,11 +276,13 @@ def device_build_tables(genomes, k: int, device: torch.device) -> Optional[dict]
     None when the build does not take the input (see the module doc)."""
     r = genomes.num_records
     g = int(genomes.codes.size)
-    if k > 31 or r > R_CAP or g < k:
+    if r > R_CAP or g < k:
         return None
     t0 = time.perf_counter()
     with phase("db_host_prep"):
         prep = _host_prep(genomes)
+        if k > MAX_K:
+            PROFILER.count("db_build_words", items=len(word_spans(k)))
     if prep is None:
         return None
     prep_s = time.perf_counter() - t0
@@ -340,7 +377,8 @@ def _budget(device: torch.device) -> int:
 def device_hash_table(built: dict
                       ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """(table int32 [nb, 16, 4], stash int32 [<= 64, 4]) on the build's
-    device from ``device_build_tables`` output, or None when the table
+    device from ``device_build_tables`` output at k <= 31 (a multi-word
+    build takes the sort join alone), or None when the table
     would pass the device's budget (``_budget``: 10 GB off a card) or the
     probe's slot limit (``index.hashtable.slots_fit``), or its stash still
     overflows after two doublings.  Both are

@@ -4,10 +4,11 @@
 Per batch of 2-bit packed reads, all on the device:
 
   1. unpack + rolling k-mer encode (+ MKQ window sums)  kernel H1; at
-     k > 31 the multi-word keys, composed from two H1 launches
+     k > 31 the multi-word keys, kernel H3
   2. probe, by the table's type: the bucket hash (kernel H2, k <= 31) or
      the sort join over the key words (``ops/probe_sort2.py``, which also
-     does step 5)
+     does step 5; profiled as the device phase ``sort_join`` and the
+     counter ``sort_join_rows``)
   3. integer quality gates: MRQ read gate, MKQ window gate
   4. max-genomes gate
   5. first-occurrence dedupe of k-mer values within a read
@@ -38,6 +39,7 @@ from shotgun_tpu_torch.ops.encode import encode_window, encode_words, window_qua
 from shotgun_tpu_torch.ops.probe import HashTableDev, probe_kmers
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
 from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted_words
+from shotgun_tpu_torch.utils.profiling import PROFILER
 
 BIG = 0x3FFFFFFF
 FOLD_INF = 0x7FFFFFFF
@@ -443,7 +445,9 @@ def align_batch(
         words, qsum = encode_words(codes, k, qual if has_mkq else None)
         query_ok = _window_ok(None, lengths, k, words[0].shape[1], mkq, has_mkq,
                               qsum=qsum)
-        hit, sid, gc, first_occ = probe_dedupe_sorted_words(probe_tab, words, query_ok)
+        with PROFILER.device_phase("sort_join", codes.device):
+            hit, sid, gc, first_occ = probe_dedupe_sorted_words(probe_tab, words, query_ok)
+        PROFILER.count("sort_join_rows", items=probe_tab.sid.shape[0] + query_ok.numel())
         probe_res = (hit, sid, gc, None)
     else:
         keys, qsum = encode_window(codes, k, qual if has_mkq else None)

@@ -245,7 +245,8 @@ def encode_words(
     key the one word); at k >= 32 it launches kernel H3 on the current
     stream, once (counted in ``encode_words.launches``, and in
     ``encode_words.launches_by_mode`` under "k=<k>, keys" or
-    "k=<k>, keys+sums"), whose
+    "k=<k>, keys+sums", with ", one row" for a single row such as the
+    device build's genome), whose
     words are planes of one [ceil(k / 31), B, W] tensor.  A CPU tensor
     takes ``encode_words_plain``."""
     if k < 1:
@@ -284,7 +285,8 @@ def encode_words(
     check_status(lib, status, "encode_words")
     encode_words.launches += 1
     encode_words.launches_by_mode[f"k={k}, " + ("keys+sums" if qual is not None
-                                                 else "keys")] += 1
+                                                 else "keys")
+                                  + ", one row" * (rows == 1)] += 1
     return tuple(planes.unbind(0)), qsums
 
 

@@ -6,9 +6,9 @@ Built on the host (``build_index``: native C++ for k <= 31, numpy for
 any k; EXTSIM's overlap matrix on the device from 256 genome
 identifiers, ``index/extsim.py``), loaded from and saved to the JAX
 package's ``.kdb`` npz container, or built on the device
-(``from_device_build``: it aligns, but has no host k-mer arrays to save
-or dump), and turned into device probe tables.  ``write_summary`` streams
-the dumpref JSON.  The probe routes are the JAX package's: at k <= 31
+(``from_device_build``, at any k: it aligns, but has no host k-mer
+arrays to save or dump), and turned into device probe tables.
+``write_summary`` streams the dumpref JSON.  The probe routes are the JAX package's: at k <= 31
 ``auto`` picks the sort join (``sort``) up to the device's crossover
 (``routes.device_routes``: the JAX package's 8M distinct k-mers off a
 card) and the 16-slot ``hash16`` table above, and ``hash`` (or
@@ -183,10 +183,11 @@ class KmerReference:
                           device: Optional[Union[str, torch.device]] = None
                           ) -> Optional["KmerReference"]:
         """A reference whose tables were built on ``device`` (default
-        ``resolve_device()``; ``index/device_build.py``): it aligns and
-        summarizes as a host-built one does, but holds no host k-mer
-        arrays.  None when the device build does not take the input;
-        callers then build on the host."""
+        ``resolve_device()``; ``index/device_build.py``) at any k, with
+        multi-word keys past 31 bases: it aligns and summarizes as a
+        host-built one does, but holds no host k-mer arrays.  None when
+        the device build does not take the input (too many records, N runs
+        or multi-record sets); callers then build on the host."""
         device = resolve_device(device)
         built = device_build_tables(genomes, k, device)
         if built is None:
@@ -660,10 +661,11 @@ class KmerReference:
 
     def sort_columns(self) -> tuple:
         """(words, sid, gc): the key-sorted table's columns where they live,
-        a device build's rows on its device, else the host index's
-        (``sorted_table_host``)."""
+        a device build's rows on its device (every word of a multi-word
+        build), else the host index's (``sorted_table_host``)."""
         if self._built is not None:
-            return (self._built["keys"],), self._built["sid"], self._built["gc"]
+            b = self._built
+            return b["words"] if "words" in b else (b["keys"],), b["sid"], b["gc"]
         return sorted_table_host(self.index)
 
     def set_member_dense(self) -> np.ndarray:

@@ -11,6 +11,12 @@ phase is also a ``torch.profiler.record_function`` span, so a
 of the device's kernels.  Phases may run on several threads (the
 stream's fill runs on its producer thread); a span never stays open
 across a generator's ``yield``, so each thread's spans nest.
+
+A device phase (``device_phase``) times the device's work instead of
+the host's: the sort join of a batch is ``sort_join`` (span) and
+``sort_join_device`` (stat), beside the counter ``sort_join_rows`` (the
+table's rows plus the batch's windows that one join sorts).  The device
+build at k > 31 counts its key words in ``db_build_words``.
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterator, List, Tuple
 
+import torch
 from torch.profiler import record_function
 
 __all__ = ["PROFILER", "PhaseStat", "Profiler", "parse_report", "phase"]
@@ -41,9 +48,15 @@ class Profiler:
         self.enabled = False
         self.stats: "OrderedDict[str, PhaseStat]" = OrderedDict()
         self._lock = threading.Lock()
+        #: (stat name, start event, end event) of device phases not yet settled
+        self._pending: List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]] = []
 
     def enable(self) -> None:
+        """Turn the profiler on, dropping device phases still pending from
+        before (a run that never reached ``settle``)."""
         self.enabled = True
+        with self._lock:
+            self._pending = []
 
     @contextlib.contextmanager
     def phase(self, name: str, items: int = 0) -> Iterator[None]:
@@ -55,12 +68,59 @@ class Profiler:
             with record_function(name):
                 yield
         finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                st = self.stats.setdefault(name, PhaseStat())
-                st.seconds += dt
-                st.calls += 1
-                st.items += items
+            self._add(name, time.perf_counter() - t0, items)
+
+    def _add(self, name: str, seconds: float, items: int = 0) -> None:
+        with self._lock:
+            st = self.stats.setdefault(name, PhaseStat())
+            st.seconds += seconds
+            st.calls += 1
+            st.items += items
+
+    @contextlib.contextmanager
+    def device_phase(self, name: str, device: torch.device) -> Iterator[None]:
+        """A ``record_function`` span ``name`` whose stat is the device's
+        time, ``<name>_device``.  On a CUDA ``device`` a pair of timing
+        events is recorded on its current stream around the block and
+        kept pending: they time the stream between the two markers, so
+        any idle time inside counts, and ``settle`` folds them in once the
+        device has passed them.  Nothing here waits for the device.  Off
+        CUDA the host's wall time stands in.  Disabled, it records
+        nothing and makes no event."""
+        if not self.enabled:
+            yield
+            return
+        stat = f"{name}_device"
+        cuda = device.type == "cuda"
+        if cuda:
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        t0 = time.perf_counter()
+        try:
+            with record_function(name):
+                yield
+        finally:
+            if cuda:
+                end.record(stream)
+                with self._lock:
+                    self._pending.append((stat, start, end))
+            else:
+                self._add(stat, time.perf_counter() - t0)
+
+    def settle(self) -> None:
+        """Fold the pending device phases whose end the device has passed
+        into their stats (``Event.query``: no wait); the others stay
+        pending."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for i, (stat, start, end) in enumerate(pending):
+            if not end.query():
+                with self._lock:
+                    self._pending[:0] = pending[i:]
+                return
+            self._add(stat, start.elapsed_time(end) / 1e3)
 
     def count(self, name: str, items: int = 0) -> None:
         """One call of ``items`` into the counter ``name``: an entry of

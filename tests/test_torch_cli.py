@@ -348,6 +348,21 @@ def test_k35_probe_values_take_the_word_join(probe, monkeypatch, capsys):
     assert _both(K35, capsys) == (auto, auto)
 
 
+@pytest.mark.parametrize("extra", [[], ["--min-kmer-quality", "60"]], ids=["ungated", "mkq"])
+def test_k35_dumpalign_g_takes_the_device_build(extra, monkeypatch, capsys, stages):
+    """Inside the device-build window, -g at k = 35 builds on the device
+    (stage ``db_build_device``, its words counted in ``db_build_words``)
+    and aligns by the sort join (``sort_join_device``,
+    ``sort_join_rows``): the JAX CLI's stdout, which builds on the host."""
+    monkeypatch.setenv("SHOTGUN_TPU_DEVICE_BUILD_MIN", "0")
+    mine, theirs = _both(K35 + extra + ["--batch-size", "16", "--profile"], capsys)
+    assert mine == theirs and json.loads(mine)["Statistics"]["unique_mapped_reads"] > 0
+    for name in ("db_build_device", "db_build_words", "sort_join_device", "sort_join_rows"):
+        assert name in stages, name
+    assert "db_build" not in stages
+    assert stages["db_build_words"].items == 2
+
+
 def test_k35_hash_probe_raises_jax_value_error(monkeypatch):
     monkeypatch.setenv("SHOTGUN_TPU_PROBE", "hash")
     msgs = []

@@ -1,8 +1,9 @@
 """The port's device build (shotgun_tpu_torch.index.device_build) against
 the host index and the JAX package's device build: equal distinct keys,
-genome counts and set membership per key; the same rejections; the
-device-assembled 16-slot table; and equal dumpalign summaries from
-device-built and host-built references."""
+genome counts and set membership per key (past 31 bases, where the JAX
+build returns None, against the host builds alone); the same rejections;
+the device-assembled 16-slot table; and equal dumpalign summaries from
+device-built and host-built references, at k = 21 and k = 35."""
 
 import numpy as np
 import pytest
@@ -16,13 +17,14 @@ from shotgun_tpu.io.packing import pack_genomes
 from shotgun_tpu.io.records import SeqRecord
 from shotgun_tpu.reference import KmerReference as JaxKmerReference
 from shotgun_tpu.utils.synth import synth_genomes, synth_reads, to_fastq
-from shotgun_tpu_torch import convert
+from shotgun_tpu_torch import cli, convert
 from shotgun_tpu_torch.aligner import PseudoAlignment
+from shotgun_tpu_torch.index import build as tbuild
 from shotgun_tpu_torch.index import device_build as tdb
 from shotgun_tpu_torch.index import hashtable as tht
 from shotgun_tpu_torch.io import data_file as tdf
 from shotgun_tpu_torch.ops.probe import HashTableDev, probe_kmers
-from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
+from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, host_key_words
 from shotgun_tpu_torch.reference import KmerReference
 
 torch.set_num_threads(2)
@@ -100,13 +102,60 @@ def test_device_build_matches_host_and_jax(name):
         assert dev["num_sets"] > 1024  # multi-record sets were numbered
 
 
+def _check_equal_words(genomes, k):
+    """Past 31 bases: the port's build equals the port's host index and
+    the JAX package's, word for word."""
+    tgenomes = convert.genome_arrays(genomes)
+    dev = tdb.device_build_tables(tgenomes, k, CPU)
+    assert dev is not None and "keys" not in dev
+    words = [w.numpy() for w in dev["words"]]
+    assert len(words) == -(-k // 31) and dev["num_kmers"] == words[0].size
+    for host in (tbuild.build_index(tgenomes, k), convert.kmer_index(build_index(genomes, k))):
+        assert dev["num_kmers"] == host.num_kmers
+        for got, want in zip(words, host_key_words(host.kmer_words, k), strict=True):
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(dev["gc"].numpy(), host.genome_counts())
+        width = max(dev["set_masks"].shape[1], host.set_masks.shape[1])
+        np.testing.assert_array_equal(
+            _membership(dev["set_masks"], dev["sid"].numpy(), width),
+            _membership(host.set_masks, host.set_id, width))
+        assert dev["num_sets"] == host.num_sets
+    return dev
+
+
+def _shared_with_ns(seed, n, length):
+    """Genomes that share stretches (so multi-record sets), with N runs
+    and a record shorter than most k."""
+    rng = np.random.default_rng(seed)
+    genomes = synth_genomes(rng, n, length)
+    genomes.codes[length: length + length // 3] = genomes.codes[: length // 3]
+    genomes.codes[2 * length + 50: 2 * length + 250] = genomes.codes[100: 300]
+    genomes.codes[3 * length + 40: 3 * length + 43] = 4
+    genomes.codes[150: 151] = 4
+    return genomes
+
+
+@pytest.mark.parametrize("k", [33, 35, 62, 75])
+def test_device_build_past_31_bases_matches_host(k):
+    dev = _check_equal_words(_shared_with_ns(30 + k, 5, 2_000), k)
+    assert dev["num_sets"] > 5  # multi-record sets were numbered
+    assert int((dev["gc"] > 1).sum()) > 0
+
+
 @pytest.mark.parametrize("case", ["k75", "too_many_records"])
 def test_device_build_rejects_unsupported(case):
+    """The JAX build refuses both; the port's refuses too many records and
+    builds k = 75, equal to the host builds."""
     if case == "k75":
         genomes, k = synth_genomes(np.random.default_rng(2), 2, 400), 75
     else:
         genomes, k = _genomes_from_strings(["ACGTACGTACGTACGT"] * (tdb.R_CAP + 1)), 11
     assert jax_device_build(genomes, k, JaxKmerReference._pad_rows) is None
+    if case == "k75":
+        _check_equal_words(genomes, k)
+        ref = KmerReference.from_device_build(convert.genome_arrays(genomes), k, CPU)
+        assert ref is not None and len(ref.sort_columns()[0]) == 3
+        return
     assert tdb.device_build_tables(convert.genome_arrays(genomes), k, CPU) is None
     assert KmerReference.from_device_build(convert.genome_arrays(genomes), k, CPU) is None
 
@@ -277,3 +326,31 @@ def test_device_built_aligns_like_host_built(route, probe, tmp_path, monkeypatch
                                           *gates, batch_size=64)
         assert ref.probe_method() == probe
         assert pa.get_summary() == want
+
+
+@pytest.mark.parametrize("gates", [(None, None, None), (None, 74, None), (70, 74, 2)],
+                         ids=["ungated", "mkq", "all"])
+def test_k35_resident_path_aligns_like_host_built(gates, tmp_path, monkeypatch):
+    """k = 35 through the resident path a benchmark cell takes: the device
+    build, then ``cli.create_alignment_from_reference`` and
+    ``get_summary()``, equal to a host-built reference's and the JAX
+    package's, sample after sample on one reference."""
+    monkeypatch.delenv("SHOTGUN_TPU_PROBE", raising=False)
+    k = 35
+    genomes, reads = _workload(35)
+    fq = tmp_path / "reads.fq"
+    fq.write_text(to_fastq(reads))
+    jpa = JaxPseudoAlignment(JaxKmerReference(k, _index=build_index(genomes, k)))
+    jpa.align_stream(open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
+                     batch_size=64)
+    want = jpa.get_summary()
+    assert want["Statistics"]["ambiguous_mapped_reads"] > 0
+    assert want["Statistics"]["unique_mapped_reads"] > 0
+
+    tgenomes = convert.genome_arrays(genomes)
+    dev_ref = KmerReference.from_device_build(tgenomes, k, CPU)
+    assert isinstance(dev_ref.device_probe_tables(CPU), SortedTableDev)
+    for ref in (dev_ref, KmerReference(k, tgenomes, device=CPU), dev_ref):
+        got = cli.create_alignment_from_reference(ref, str(fq), CPU, 1, 1, *gates,
+                                                  batch_size=64).get_summary()
+        assert got == want

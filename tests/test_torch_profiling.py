@@ -4,7 +4,9 @@ the CPU: while enabled a phase is timed into ``stats`` and is a
 nested phases nest there, a disabled registry records and emits nothing,
 threads lose no calls; the stream's spans (fill, fill wait, staging,
 launches and the per-sample steps) are recorded as often as the stream
-does each step, nest on the main thread, and change no summary."""
+does each step, nest on the main thread, and change no summary; a device
+phase (the sort join's) is timed by events kept pending until
+``settle``, and a disabled one makes no event."""
 
 import io
 import json
@@ -247,3 +249,146 @@ def test_kernel_library_load_is_a_phase(registry, monkeypatch):
     lib = kbuild.load_library()
     assert kbuild.load_library() is lib
     assert registry.stats["kernel_build"].calls == 1
+
+
+class _FakeEvent:
+    """A stand-in for ``torch.cuda.Event``: ``done`` says whether the
+    device has passed it; ``made`` counts the events made."""
+
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+        self.t, self.done, self.stream = None, False, None
+
+    def record(self, stream=None):
+        self.t, self.stream = time_ms(), stream
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        assert self.done and end.done
+        return end.t - self.t
+
+
+_CLOCK = [0.0]
+
+
+def time_ms():
+    _CLOCK[0] += 2.5
+    return _CLOCK[0]
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    _FakeEvent.made = 0
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: "stream")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: pytest.fail("synced"))
+    return _FakeEvent
+
+
+def test_device_phase_keeps_events_pending_until_settled(fake_cuda):
+    """On a CUDA device the phase records two events on the current
+    stream and nothing else: no stat until ``settle``, which folds only
+    the pairs the device has passed, in order, and never waits."""
+    prof_reg = Profiler()
+    prof_reg.settle()  # nothing pending: a no-op
+    assert not prof_reg.stats
+    prof_reg.enable()
+    cuda = torch.device("cuda", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with prof_reg.device_phase("join", cuda):
+                pass
+    assert fake_cuda.made == 6 and not prof_reg.stats
+    assert [s[3] for s in _annotations(prof)] == ["join"] * 3
+    pairs = list(prof_reg._pending)
+    assert all(a.stream == b.stream == "stream" for _, a, b in pairs)
+    for _, a, b in pairs[:2]:
+        a.done = b.done = True
+    prof_reg.settle()
+    st = prof_reg.stats["join_device"]
+    assert (st.calls, st.seconds) == (2, pytest.approx(2 * 2.5e-3))
+    assert prof_reg._pending == pairs[2:]
+    pairs[2][1].done = pairs[2][2].done = True
+    prof_reg.settle()
+    assert prof_reg.stats["join_device"].calls == 3 and not prof_reg._pending
+    assert list(prof_reg.stats) == ["join_device"]
+
+
+def test_enable_drops_pairs_left_pending(fake_cuda):
+    """A run that never settled leaves its pairs pending; turning the
+    profiler on for the next window drops them, so they are never folded
+    into that window's stat."""
+    prof_reg = Profiler()
+    prof_reg.enable()
+    with prof_reg.device_phase("join", torch.device("cuda", 0)):
+        pass
+    (_, start, end), = prof_reg._pending
+    start.done = end.done = True
+    prof_reg.stats.clear()
+    prof_reg.enable()
+    prof_reg.settle()
+    assert not prof_reg._pending and not prof_reg.stats
+
+
+def test_disabled_device_phase_makes_no_event(fake_cuda):
+    prof_reg = Profiler()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with prof_reg.device_phase("join", torch.device("cuda", 0)):
+            torch.ones(4).sum()
+    prof_reg.settle()
+    assert fake_cuda.made == 0 and not prof_reg.stats and not prof_reg._pending
+    assert not [s for s in _annotations(prof) if s[3] == "join"]
+
+
+def test_device_phase_off_cuda_takes_the_host_time():
+    prof_reg = Profiler()
+    prof_reg.enable()
+    with prof_reg.device_phase("join", CPU):
+        torch.ones(8).sum()
+    with prof_reg.device_phase("join", CPU):
+        pass
+    st = prof_reg.stats["join_device"]
+    assert st.calls == 2 and st.seconds > 0 and not prof_reg._pending
+
+
+@pytest.mark.parametrize("k", [11, 35])
+def test_sort_join_is_a_device_phase_and_a_counter(registry, k):
+    """Each batch on the sort join records ``sort_join_device`` and
+    ``sort_join_rows`` (the table's rows plus the batch's windows), and a
+    span ``sort_join`` inside ``enqueue``; the summary is unchanged."""
+    PROFILER.enabled = False
+    ref = cli.dumpalign_reference(FA, k, False, 0.0, CPU)
+    want = _sample(ref)
+    PROFILER.enable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert _sample(ref) == want
+    batches = -(-READS // BATCH)
+    stats = registry.stats
+    assert stats["sort_join_device"].calls == batches
+    assert 0 < stats["sort_join_device"].seconds <= stats["enqueue"].seconds
+    rows = stats["sort_join_rows"]
+    table = ref.device_probe_tables(CPU).sid.shape[0]
+    assert rows.counter and rows.calls == batches
+    assert rows.items > batches * table
+    spans = _annotations(prof)
+    enqueues = [s for s in spans if s[3] == "enqueue"]
+    joins = [s for s in spans if s[3] == "sort_join"]
+    assert len(joins) == batches and _nested(spans)
+    assert all(any(e[1] <= j[1] and j[2] <= e[2] for e in enqueues) for j in joins)
+
+
+def test_k35_device_build_counts_its_words(registry, monkeypatch):
+    monkeypatch.setenv("SHOTGUN_TPU_DEVICE_BUILD_MIN", "0")
+    ref = cli.dumpalign_reference(FA, 35, False, 0.0, CPU)
+    assert ref._built is not None and len(ref.sort_columns()[0]) == 2
+    st = registry.stats["db_build_words"]
+    assert st.counter and (st.calls, st.items) == (1, 2)
+    assert registry.stats["db_host_prep"].calls == 1
+    registry.stats.clear()
+    cli.dumpalign_reference(FA, 31, False, 0.0, CPU)
+    assert "db_build_words" not in registry.stats

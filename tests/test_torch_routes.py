@@ -353,7 +353,7 @@ def test_profile_align_batches_measures_each_batch(capsys):
 
 #: the ``--profile`` stages that run inside another stage
 NESTED_STAGES = {"hash_table_device", "db_host_prep", "fill", "fill_wait", "stage",
-                 "enqueue", "validate", "carry_fetch", "host_merge"}
+                 "enqueue", "validate", "carry_fetch", "host_merge", "sort_join_device"}
 
 
 def test_profile_devbuild_cli_times_both_builds(monkeypatch):
