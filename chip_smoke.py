@@ -272,6 +272,15 @@ EXT_LEN = 20_000
 H2_EDGE_N = (1, 31, 32, 33, 255, 257)
 #: an empty slot's set id in a hash table row
 H2_EMPTY = np.uint32(0xFFFFFFFF)
+#: H4's edge shapes, (reads, windows a read): one window, one read, a
+#: block of reads and one more, many short reads, reads past a chunk of
+#: H4_CHUNK windows; its tables; and the batch of each word count (k = 31,
+#: 35 and 75 on the 160-base row stride)
+H4_EDGE_SHAPES = ((1, 1), (1, 126), (9, 126), (1000, 37), (3, 1025), (2, 3000))
+H4_KINDS = ("distinct", "repeated", "repeated, payloads differ", "empty")
+H4_BATCH_WINDOWS = {1: 130, 2: 126, 3: 86}
+#: the all-T 31-mer's word
+ALL_T = (1 << 62) - 1
 #: multi-word keys: the k of H3's checks, the timed k (and the second
 #: timed one) and the k of phase 9; H3's long keys, each on rows of
 #: 1024 to 5120 bases
@@ -337,7 +346,7 @@ def routes_line(device) -> str:
 
 
 #: the kernels' names, as in the kernels line
-KERNELS = ("encode_window", "encode_words", "hash_probe")
+KERNELS = ("encode_window", "encode_words", "hash_probe", "sort_probe")
 #: the kernels of k <= 31 (the main path's) and of k > 31
 K31_KERNELS = ("encode_window", "hash_probe")
 
@@ -346,8 +355,9 @@ def reset_launches() -> None:
     """Every kernel's launch count, and its count by mode, set to 0."""
     from shotgun_tpu_torch.ops.encode import encode_window, encode_words
     from shotgun_tpu_torch.ops.probe import hash_probe
+    from shotgun_tpu_torch.ops.probe_sort2 import sort_probe
 
-    for kernel in (encode_window, encode_words, hash_probe):
+    for kernel in (encode_window, encode_words, hash_probe, sort_probe):
         kernel.launches = 0
         kernel.launches_by_mode.clear()
 
@@ -355,19 +365,31 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     from shotgun_tpu_torch.ops.encode import encode_window, encode_words
     from shotgun_tpu_torch.ops.probe import hash_probe
+    from shotgun_tpu_torch.ops.probe_sort2 import sort_probe
 
     return {"encode_window": encode_window.launches, "encode_words": encode_words.launches,
-            "hash_probe": hash_probe.launches}
+            "hash_probe": hash_probe.launches, "sort_probe": sort_probe.launches}
 
 
-def check_word_launches(launches: dict, what: str, batches: int = 0) -> None:
-    """A run of multi-word keys launched H3 (``batches`` times, when
-    given) and neither H1 nor H2."""
-    h3 = launches["encode_words"]
-    if (h3 <= 0 or (batches and h3 != batches) or launches["encode_window"] != 0
-            or launches["hash_probe"] != 0):
+def check_word_launches(launches: dict, what: str, batches: int = 0,
+                        builds: int = 0) -> None:
+    """A run of multi-word keys launched H4 once a batch and H3 once a
+    batch and once a device build (``batches`` and ``builds``, when
+    given; else some of each), and neither H1 nor H2."""
+    h3, h4 = launches["encode_words"], launches["sort_probe"]
+    if (h3 <= 0 or h4 <= 0 or (batches and (h3, h4) != (batches + builds, batches))
+            or launches["encode_window"] != 0 or launches["hash_probe"] != 0):
         raise AssertionError(f"{what}: launches {launches}, want H3 "
+                             f"{batches + builds if batches else 'some'}, H4 "
                              f"{batches or 'some'}, H1 and H2 none")
+
+
+def check_k31_launches(launches: dict, what: str, hashed: bool) -> None:
+    """A run at k <= 31 encoded with H1 and probed with H2 on a hash
+    table or H4 on the sort join, and launched no H3."""
+    if (launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed
+            or (launches["sort_probe"] > 0) == hashed or launches["encode_words"] != 0):
+        raise AssertionError(f"{what}: launches {launches}")
 
 
 def max_abs_err(got, want) -> int:
@@ -600,6 +622,134 @@ def h2_edge_checks(rng, device) -> tuple:
     return cases, worst
 
 
+def h4_case(rng, nw: int, kind: str, b: int, w: int, n_table: int, device) -> tuple:
+    """(table, words, query_ok) on ``device``: a key-sorted table of about
+    ``n_table`` ``nw``-word keys (word 0 from few values, so later words
+    decide; the all-T word among them in a 'distinct' table; rows repeated
+    in a 'repeated' one, with other payloads when they differ; none in an
+    'empty' one) and [b, w] windows: table keys, keys one word off, keys
+    below the first row and at or above the last, windows repeating an
+    earlier one of their read, reads of one key, the all-T word gated and
+    not, and a read whose every window is gated."""
+    import torch
+
+    from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
+
+    # a small table's words from few values; a large one's word 0 of 61
+    # bits, its later words of 8 (the tail word at k = 35)
+    top, later = (30, 5) if n_table <= 1000 else (1 << 61, 256)
+    cols = [rng.integers(1, top, size=n_table)] + [
+        rng.integers(0, later, size=n_table) for _ in range(nw - 1)]
+    cols[0][:8] = ALL_T if kind == "distinct" else top
+    keys = np.unique(np.stack(cols, 1), axis=0)          # lexicographic order
+    u = keys.shape[0]
+    sid = rng.integers(0, 1 << 20, size=u).astype(np.int32)
+    gc = rng.integers(1, 9, size=u).astype(np.int32)
+    if kind.startswith("repeated"):
+        idx = np.sort(np.concatenate([np.arange(u), rng.choice(u, size=u // 3)]))
+        keys, sid, gc = keys[idx], sid[idx], gc[idx]
+        if kind.endswith("differ"):
+            sid = sid + np.arange(sid.size, dtype=np.int32)
+            gc = gc + (np.arange(gc.size) % 3).astype(np.int32)
+    elif kind == "empty":
+        keys, sid, gc = keys[:0], sid[:0], gc[:0]
+    n = b * w
+    q = (keys[rng.integers(0, keys.shape[0], size=n)] if keys.shape[0]
+         else np.ones((n, nw), np.int64))
+    draw = rng.random(n)
+    off = (draw > 0.5) & (draw < 0.7)                     # one word off by one
+    j = rng.integers(0, nw, size=n)
+    q[off, j[off]] += np.where(q[off, j[off]] > 0, -1, 1)
+    q[(draw >= 0.7) & (draw < 0.8), 0] = 0                # below the first row
+    q[(draw >= 0.8) & (draw < 0.9), 0] = ALL_T            # at or above the last
+    q[draw >= 0.9] = rng.integers(0, 1 << 62, size=(int((draw >= 0.9).sum()), nw))
+    q = q.reshape(b, w, nw)
+    rep = rng.random((b, w)) < 0.15
+    rep[:, 0] = False
+    src = (rng.random((b, w)) * np.arange(w)).astype(np.int64)
+    q = np.where(rep[..., None], np.take_along_axis(q, src[..., None], 1), q)
+    ok = rng.random((b, w)) < 0.85
+    if b > 1:
+        q[-1] = q[-1, 0]                                  # a read of one key
+    if b > 4:
+        q[2] = q[2, 0]                                    # a read of one key
+        q[4, ::2, 0] = ALL_T                              # the all-T word, gated and not
+        ok[4, ::4] = False
+        ok[3] = False
+    tab = SortedTableDev(tuple(torch.from_numpy(np.ascontiguousarray(keys[:, i])).to(device)
+                               for i in range(nw)),
+                         torch.from_numpy(sid).to(device), torch.from_numpy(gc).to(device))
+    words = tuple(torch.from_numpy(np.ascontiguousarray(q[..., i])).to(device)
+                  for i in range(nw))
+    return tab, words, torch.from_numpy(ok).to(device)
+
+
+def h4_checks(rng, device) -> tuple:
+    """H4 (``sort_probe``) against the plain join on the card, tolerance
+    0 on all four outputs: 1, 2 and 3 key words; distinct, repeated
+    (equal payloads and not) and empty tables; at H4_EDGE_SHAPES and at
+    each word count's batch (the card's auto batch of 160-base rows).
+    Every call launches H4 once and no other kernel.  (cases, max |err|)."""
+    import torch
+
+    from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted_words_plain, sort_probe
+
+    before = read_launches()
+    cases, worst = 0, 0
+    for nw in (1, 2, 3):
+        shapes = [(n_table, b, w) for b, w in H4_EDGE_SHAPES for n_table in (400,)]
+        shapes.append((400_000, auto_batch(N_READS, device), H4_BATCH_WINDOWS[nw]))
+        for kind in H4_KINDS:
+            for n_table, b, w in shapes:
+                args = h4_case(rng, nw, kind, b, w, n_table, device)
+                worst = max(worst, max_abs_err(sort_probe(*args),
+                                               probe_dedupe_sorted_words_plain(*args)))
+                cases += 1
+    torch.cuda.synchronize()
+    after = read_launches()
+    if {k: after[k] - before[k] for k in after} != {
+            "encode_window": 0, "encode_words": 0, "hash_probe": 0, "sort_probe": cases}:
+        raise AssertionError(f"H4 checks: {cases} calls, launches {before} -> {after}")
+    return cases, worst
+
+
+def h4_modes(device) -> tuple:
+    """H4 at the marine35.deep cell's batch ([65536, 126], two words, a
+    table of its 198,397,824 rows; ``tools/bench_sortjoin.py --h4``'s case)
+    and on that table's first word as a one-word table at k = 31's
+    [65536, 130]: equal to the plain join, and timed beside it and its
+    byte bound.  (modes, max |err|)."""
+    import torch
+
+    from shotgun_tpu_torch.ops.probe_sort import SortedTableDev
+    from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted_words_plain, sort_probe
+    from shotgun_tpu_torch.tools import bench_sortjoin as bs
+    from shotgun_tpu_torch.tools.bench_encode import bound_ms
+
+    tab = bs.h4_table(bs.H4_ROWS, bs.H4_WORDS, device, 21)
+    one = SortedTableDev(tab.words[:1], tab.sid, tab.gc)
+    modes, worst = [], 0
+    for table, w, valid in ((tab, bs.H4_WINDOWS, bs.H4_VALID), (one, 130, 120)):
+        words, ok = bs.h4_queries(table, bs.H4_BATCH, w, valid, 22)
+        args = (table, words, ok)
+        err = max_abs_err(sort_probe(*args), probe_dedupe_sorted_words_plain(*args))
+        torch.cuda.synchronize()
+        worst = max(worst, err)
+        nw, n = len(words), ok.numel()
+        ms, plain_ms = timed(lambda: sort_probe(*args),
+                             lambda: probe_dedupe_sorted_words_plain(*args), n * 10, 50, 3)
+        nbytes = bs.h4_bytes(n, nw)
+        modes.append({"shape": f"[{bs.H4_BATCH}, {w}] ({valid} windows a read inside it) "
+                               f"into {table.sid.shape[0]} rows",
+                      "mode": f"{nw} word" + "s" * (nw > 1), "bytes": nbytes,
+                      "bound_ms": bound_ms(nbytes), "bound_share": bound_ms(nbytes) / ms,
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": None, "max_abs_err": err})
+        del words, ok, args
+    del tab, one
+    torch.cuda.empty_cache()
+    return modes, worst
+
+
 def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray,
                   genomes, rng, device) -> list:
     """Phase 4: each kernel against its plain version at main-path shapes
@@ -748,6 +898,10 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
         return modes
 
     modes, word_modes = timed_modes(h1_modes), timed_modes(h3_modes)
+    n_h4, err_h4 = h4_checks(rng, device)
+    h4m, err_h4m = h4_modes(device)
+    if max(err_h4, err_h4m) != 0:
+        raise AssertionError(f"kernel != plain: H4 cases {err_h4}, H4 timed {err_h4m}")
     no_library = ("none: no single PyTorch call computes this function (%s); "
                   "the plain version takes %s")
     main_mode = modes[0]
@@ -786,6 +940,22 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
              "bucket hash, bucket-row gather, slot and stash compare",
              "a gather and min/max reductions"),
          "edge_cases_checked": n_h2_edge, "modes": h2_modes},
+        {"name": "sort_probe", "route": "cuda",
+         "source": f"{CSRC}/sort_probe.cu", "replaces": None,
+         "replaces_reason": "no Pallas kernel: the JAX sort join "
+                            "(shotgun_tpu/ops/probe_sort2.py:163-354) is jnp; H4 "
+                            "replaces the port's torch join, which sorts the table "
+                            "with each batch",
+         "max_abs_err": max(err_h4, err_h4m),
+         **{key: h4m[0][key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_share", "bytes")},
+         "bound_by": "bytes", "library_ms": None,
+         "library_reason": no_library % (
+             "a lexicographic search of multi-word keys with the row's payload and "
+             "the within-read first occurrence",
+             "stable sorts of the table with the batch, a prefix count, a scatter "
+             "and gathers"),
+         "cases_checked": n_h4, "modes": h4m},
     ]
     say("phase 4 kernels == plain (integer outputs, tolerance 0): H1 at %d edge "
         "cases (k 1/2/15/31; 1, 7, 32768 rows of 8/40/41 packed bytes; a row one "
@@ -796,12 +966,14 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
         "H2 at %d edge cases (4 and 16 slots; stash 0/1/64 "
         "rows; n %s) and on one batch of B=%d reads (and one window more) on the "
         "device-assembled 16-slot table of phase 3 and on the strain panel's "
-        "4-slot table (host build %.3f s; %s). Times (launches queued behind "
-        "a sleep kernel, outputs rotated past the L2): %s" % (
+        "4-slot table (host build %.3f s; %s); H4 at %d cases, one H4 launch and "
+        "no other each (1, 2 and 3 words; distinct, repeated and empty tables; "
+        "reads of 1 to 3000 windows and each word count's batch). Times (launches "
+        "queued behind a sleep kernel, outputs rotated past the L2): %s" % (
             n_edge, b, LPAD, K, row_d.shape[1] * 4, n_word,
             "/".join(map(str, WORD_KS)), "/".join(map(str, H3_LONG_KS)),
             "/".join(map(str, WORD_BUILD_KS)), n_h2_edge,
-            "/".join(map(str, H2_EDGE_N)), b, table4_s, asm4,
+            "/".join(map(str, H2_EDGE_N)), b, table4_s, asm4, n_h4,
             "; ".join("%s %s %s %.4f ms vs plain %.4f ms, %d B, bound %.4f ms, "
                       "%.1f%% of it%s" % (
                           kernel, m["mode"], m["shape"], m["ms"], m["plain_ms"],
@@ -810,7 +982,7 @@ def phase_kernels(tab, strain_index, codes: np.ndarray, strain_codes: np.ndarray
                               m["distinct_buckets"], m["stash_rows"], m["stash_hits"])
                           if kernel == "H2" else "")
                       for kernel, ms_list in (("H1", modes), ("H3", word_modes),
-                                              ("H2", h2_modes))
+                                              ("H2", h2_modes), ("H4", h4m))
                       for m in ms_list)))
     return results
 
@@ -1045,9 +1217,8 @@ def phase_strains(fa: str, fq: str) -> tuple:
         if build_stage not in stages or (build_stage == "db_build"
                                          and "db_build_device" in stages):
             raise AssertionError(f"strains, {name}: stages {stages}")
-        # the sort join launches no H2; every route encodes with H1
-        if launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed:
-            raise AssertionError(f"strains, {name}: launches {launches}")
+        # the sort join launches H4 and no H2; every route encodes with H1
+        check_k31_launches(launches, f"strains, {name}", hashed)
         outs.append(out)
         by_route[f"strains: {name}"] = launches
         align_s = stages["stream_align"]
@@ -1173,8 +1344,7 @@ def phase_strain_files(tmp: str, fa: str, fq: str, device) -> dict:
         aln = os.path.join(tmp, f"s_{len(digests)}.aln")
         _, st, launches, wall, peak = counted_run(
             ["-t", "align"] + src + ["--reads", fq, "-a", aln], env)
-        if launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed:
-            raise AssertionError(f"strains align, {name}: launches {launches}")
+        check_k31_launches(launches, f"strains align, {name}", hashed)
         digests.append(sha256(aln))
         by_route[f"strains align: {name}"] = launches
         parts.append("align %s: stream %.3f s = %.0f reads/s aligned (of it the "
@@ -1343,6 +1513,7 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
     BATCH reads.  Returns each run's kernel launches, and the MKQ run's H3
     launches by mode."""
     from shotgun_tpu_torch.ops.encode import encode_words, word_spans
+    from shotgun_tpu_torch.ops.probe_sort2 import sort_probe
     from shotgun_tpu_torch.utils.profiling import PROFILER
 
     k = str(K_WORDS)
@@ -1364,12 +1535,15 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
         stage = "db_build_device" if device else "db_build"
         if stage not in st or ("db_build" if device else "db_build_device") in st:
             raise AssertionError(f"k={k} {name}: not the {stage} stage: {st}")
-        check_word_launches(launches, f"k={k} {name}", batches + device)
-        by_mode = dict(encode_words.launches_by_mode)
+        check_word_launches(launches, f"k={k} {name}", batches, device)
+        by_mode = {"encode_words": dict(encode_words.launches_by_mode),
+                   "sort_probe": dict(sort_probe.launches_by_mode)}
         mode = f"k={k}, " + ("keys+sums" if flags else "keys")
-        want_modes = {mode: batches, **({f"k={k}, keys, one row": 1} if device else {})}
+        want_modes = {"encode_words": {mode: batches,
+                                       **({f"k={k}, keys, one row": 1} if device else {})},
+                      "sort_probe": {f"{len(word_spans(K_WORDS))} words": batches}}
         if by_mode != want_modes:
-            raise AssertionError(f"k={k} {name}: H3 launches by mode {by_mode}, "
+            raise AssertionError(f"k={k} {name}: H3 and H4 launches by mode {by_mode}, "
                                  f"want {want_modes}")
         # the device phase and the counters: once a batch, and the build's
         # words once where the device builds
@@ -1408,17 +1582,15 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
     kdb, aln = os.path.join(tmp, "s75.kdb"), os.path.join(tmp, "s75.aln")
     _, ref_st, _, ref_wall, _ = counted_run(
         ["-t", "reference", "-g", fa, "-k", k, "-r", kdb], stream=False)
-    # each join sorts the table's rows and the batch's windows: every read's
-    # READ_LEN - k + 1 at least
-    from shotgun_tpu_torch.reference import KmerReference
-
-    table_rows = KmerReference.load(kdb, device="cpu").index.num_kmers
+    # each join reads the batch's windows, padded reads included (the
+    # table's rows enter none): every read's READ_LEN - k + 1 at least
+    nwin = auto_batch(N_READS, torch.device("cuda", 0)) * (LPAD - K_WORDS + 1)
     for name, rows in joins:
-        if rows - batches * table_rows < N_READS * (READ_LEN - K_WORDS + 1):
-            raise AssertionError(f"k={k} {name}: sort_join_rows {rows} for "
-                                 f"{batches} joins of {table_rows} table rows")
-    parts.append("the joins' rows: %s (table %d rows)" % (", ".join(
-        "%s %d" % (name, rows) for name, rows in joins), table_rows))
+        if rows != batches * nwin or rows < N_READS * (READ_LEN - K_WORDS + 1):
+            raise AssertionError(f"k={k} {name}: sort_join_rows {rows} for {batches} "
+                                 f"joins of {nwin} windows")
+    parts.append("the joins' windows: %s" % ", ".join(
+        "%s %d" % (name, rows) for name, rows in joins))
     _, st, launches, wall, peak = counted_run(["-t", "align", "-r", kdb, "--reads", fq,
                                                "-a", aln])
     check_word_launches(launches, f"k={k} align -r", batches)
@@ -1454,8 +1626,8 @@ def phase_words(tmp: str, fa: str, fq: str, fq_q: str, fq_q_head: str,
     os.remove(kdb)
     os.remove(aln)
     say("phase 9 multi-word keys, k=%s on the strain panel (%d reads): device build "
-        "(== the host build's summary) + word sort join, H3 launched once a batch (%d) "
-        "and once on the genome row, H1 and H2 not, the profile's join and counters "
+        "(== the host build's summary) + word sort join, H3 and H4 launched once a batch "
+        "(%d), H3 once more on the genome row, H1 and H2 not, the profile's join and counters "
         "once a batch, statistics plausible, the MKQ gate's "
         "count == numpy's and its reads moved, dumpalign -a == -r --reads == -g; %s" % (
             k, N_READS, batches, "; ".join(parts)))
@@ -1499,11 +1671,11 @@ def phase_packed() -> dict:
             raise AssertionError(f"align_packed_reads ({name}) != align_stream")
         if k == 11 and runs[1][0] != json.dumps(json.loads(golden("plain"))):
             raise AssertionError(f"align_packed_reads ({name}): not the plain case")
-        if k > 31:
-            check_word_launches(launches, f"align_packed_reads ({name})")
-        elif (launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed
-              or launches["encode_words"] != 0):
-            raise AssertionError(f"align_packed_reads ({name}): launches {launches}")
+        if k > 31:  # one join a batch of 16 reads
+            check_word_launches(launches, f"align_packed_reads ({name})",
+                                -(-batch.num_reads // 16))
+        else:
+            check_k31_launches(launches, f"align_packed_reads ({name})", hashed)
         by_path[f"align_packed_reads, {name}"] = launches
     say("phase 10 align_packed_reads == align_stream (summary and read store) on the "
         "golden corpus, %d reads: %s" % (batch.num_reads, "; ".join(
@@ -1518,12 +1690,14 @@ import json, sys
 from shotgun_tpu_torch.cli import main
 from shotgun_tpu_torch.ops.encode import encode_window, encode_words
 from shotgun_tpu_torch.ops.probe import hash_probe
+from shotgun_tpu_torch.ops.probe_sort2 import sort_probe
 try:
     main(sys.argv[1:])
 finally:
     print("launches " + json.dumps({"encode_window": encode_window.launches,
                                     "encode_words": encode_words.launches,
-                                    "hash_probe": hash_probe.launches}), file=sys.stderr)
+                                    "hash_probe": hash_probe.launches,
+                                    "sort_probe": sort_probe.launches}), file=sys.stderr)
 """
 
 
@@ -1644,8 +1818,7 @@ def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: i
     def check(name, out, want, launches, hashed):
         if out != want:
             raise AssertionError(f"11 {name}: the summary differs from its single-device run")
-        if launches["encode_window"] <= 0 or (launches["hash_probe"] > 0) != hashed:
-            raise AssertionError(f"11 {name}: launches {launches}")
+        check_k31_launches(launches, f"11 {name}", hashed)
         by_path[f"11 {name}"] = launches
 
     # 11a: 4 data shards, 48 Mbp, the device build's 16-slot table
@@ -1714,8 +1887,7 @@ def phase_mesh(fa: str, fq: str, sfa: str, sfq: str, main_out: str, main_peak: i
     if backend != "gloo":
         raise AssertionError(f"11d: backend {backend}, not gloo (one card, two processes)")
     for rank, got in enumerate(launches):
-        if got["encode_window"] <= 0 or got["hash_probe"] != 0:
-            raise AssertionError(f"11d: process {rank} launches {got}")
+        check_k31_launches(got, f"11d: process {rank}", False)
         by_path[f"11 d: 2-process CLI, process {rank}"] = got
     parts.append("d. 2-process CLI dumpalign -g on the strain panel, both on cuda:0, backend "
                  "%s: wall %.3f s (process 0: host build %.3f s, FASTQ parse %.3f s, align "
@@ -1861,7 +2033,8 @@ def phase_100mbp_devbuild(tmp: str, device) -> tuple:
         os.environ.pop(PROBE_ENV)
     by_path["12a sort join (SHOTGUN_TPU_PROBE=sort)"] = launches = read_launches()
     sort_peak = torch.cuda.max_memory_allocated() - base
-    if sort_table["method"] != "sort" or launches["hash_probe"] != 0:
+    if (sort_table["method"] != "sort" or launches["hash_probe"] != 0
+            or launches["sort_probe"] <= 0):
         raise AssertionError(f"12a sort: table {sort_table}, launches {launches}")
     if al["summary"] != res["align"]["summary"]:
         raise AssertionError("12a: the sort and hash16 summaries differ")
@@ -1941,7 +2114,8 @@ def phase_100mbp_devbuild(tmp: str, device) -> tuple:
         raise AssertionError(f"12a CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
     stages = profile_stages(proc.stderr)
     by_path["12a CLI dumpalign -g"] = cli = child_launches(proc.stderr)
-    if "db_build_device" not in stages or "db_build" in stages or cli["hash_probe"] <= 0:
+    if ("db_build_device" not in stages or "db_build" in stages or cli["hash_probe"] <= 0
+            or cli["sort_probe"] != 0):
         raise AssertionError(f"12a CLI: stages {stages}, launches {cli}")
     if proc.stdout != want:
         raise AssertionError("12a: the CLI's dumpalign -g stdout != the library summary")
@@ -2168,7 +2342,7 @@ def phase_100mbp_bulk(tmp: str, device, p12a: dict) -> dict:
     if "hash_table_device" not in stages or "hash_table_host" in stages:
         raise AssertionError(f"12b CLI: the table was not assembled on the card: {stages}")
     by_path["12b CLI dumpalign -r .kdb"] = cli = child_launches(proc.stderr)
-    if cli["encode_window"] <= 0 or cli["hash_probe"] <= 0:
+    if cli["encode_window"] <= 0 or cli["hash_probe"] <= 0 or cli["sort_probe"] != 0:
         raise AssertionError(f"12b CLI: launches {cli}")
     os.remove(kdb)
     os.remove(a["fastq"])
@@ -2460,12 +2634,14 @@ def main() -> int:
     word_path = f"k={K_WORDS} strains dumpalign -g, random quality, MKQ {WORD_MKQ}"
     paths = {"encode_window": (launches, by_mode["encode_window"]),
              "hash_probe": (launches, by_mode["hash_probe"]),
-             "encode_words": (by_path[word_path], word_by_mode)}
+             "encode_words": (by_path[word_path], word_by_mode["encode_words"]),
+             "sort_probe": (by_path[word_path], word_by_mode["sort_probe"])}
     kernels[0]["modes"].append(h1_100mbp)
     kernels[2]["modes"].append(h2_100mbp)
     for kr in kernels:
         count, modes = paths[kr["name"]]
-        kr["path"] = word_path if kr["name"] == "encode_words" else "main path"
+        kr["path"] = (word_path if kr["name"] in ("encode_words", "sort_probe")
+                      else "main path")
         kr["launches"] = count[kr["name"]]
         kr["launches_by_path"] = {p: n.get(kr["name"], 0) for p, n in by_path.items()}
         for m in kr["modes"]:

@@ -6,9 +6,9 @@ Per batch of 2-bit packed reads, all on the device:
   1. unpack + rolling k-mer encode (+ MKQ window sums)  kernel H1; at
      k > 31 the multi-word keys, kernel H3
   2. probe, by the table's type: the bucket hash (kernel H2, k <= 31) or
-     the sort join over the key words (``ops/probe_sort2.py``, which also
-     does step 5; profiled as the device phase ``sort_join`` and the
-     counter ``sort_join_rows``)
+     the sort join over the key words (``ops/probe_sort2.py``, kernel H4,
+     which also does step 5; profiled as the device phase ``sort_join``
+     and the counter ``sort_join_rows``)
   3. integer quality gates: MRQ read gate, MKQ window gate
   4. max-genomes gate
   5. first-occurrence dedupe of k-mer values within a read
@@ -447,7 +447,7 @@ def align_batch(
                               qsum=qsum)
         with PROFILER.device_phase("sort_join", codes.device):
             hit, sid, gc, first_occ = probe_dedupe_sorted_words(probe_tab, words, query_ok)
-        PROFILER.count("sort_join_rows", items=probe_tab.sid.shape[0] + query_ok.numel())
+        PROFILER.count("sort_join_rows", items=query_ok.numel())
         probe_res = (hit, sid, gc, None)
     else:
         keys, qsum = encode_window(codes, k, qual if has_mkq else None)

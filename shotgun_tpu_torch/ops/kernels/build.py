@@ -11,8 +11,9 @@ here.  The library is rebuilt when a source is newer than it.
 
 The wrappers live beside their plain PyTorch versions
 (``ops/encode.py`` for H1 ``encode_window`` and H3 ``encode_words``,
-``ops/probe.py`` for H2 ``hash_probe``); every pointer and the stream
-travel as ``c_void_p``.
+``ops/probe.py`` for H2 ``hash_probe``, ``ops/probe_sort2.py`` for H4
+``sort_probe``); every pointer and the stream travel as ``c_void_p``
+(H4's key words as host arrays of them).
 """
 
 from __future__ import annotations
@@ -102,12 +103,15 @@ _LIB = None
 
 
 _VP, _I64, _CI = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
 #: each C entry point: (argument types, return type)
 ENTRY_POINTS = {
     "stt_encode_window": ([_VP, _VP, _VP, _VP, _I64, _I64, _CI, _CI, _VP], _CI),
     "stt_encode_words": ([_VP, _VP, _VP, _VP, _I64, _I64, _CI, _CI, _VP], _CI),
     "stt_hash_probe": ([_VP, _VP, _I64, _CI, _VP, _CI, _VP, _VP, _VP, _I64, _CI, _VP],
                        _CI),
+    "stt_sort_probe": ([_PTRS, _PTRS, _CI, _VP, _VP, _I64, _VP, _I64, _I64, _VP, _VP,
+                        _VP, _VP, _CI, _VP], _CI),
     "stt_error_string": ([_CI], ctypes.c_char_p),
 }
 

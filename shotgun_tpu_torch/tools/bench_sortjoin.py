@@ -4,6 +4,7 @@ on one device, batch by batch.
     python -m shotgun_tpu_torch.tools.bench_sortjoin [--device cuda]
         [--keys 3300000 32000000] [--batch 32768] [--iters 20] [--seed 0]
     python -m shotgun_tpu_torch.tools.bench_sortjoin --k 75
+    python -m shotgun_tpu_torch.tools.bench_sortjoin --h4 [--iters 20]
 
 At k = 31 (the default), for each table size: a key-sorted table of distinct random 62-bit keys,
 and one batch of [B, W] window keys (W = 130: 150 bp reads on the
@@ -11,10 +12,12 @@ stream's 160-base row stride, k = 31), half of them table keys, a tenth
 repeating an earlier window of their read, and 5% gated.  Each is timed
 after one warm-up call:
 
-- ``join``: ``probe_dedupe_sorted``, as the pipeline runs it (a prefix
-  count of table rows finds each position's last table row);
-- ``join_cummax``: the same join with that row found by ``torch.cummax``,
-  the first design; its outputs must equal ``join``'s;
+- ``join``: ``probe_dedupe_sorted``, as the pipeline runs it (kernel H4
+  on a CUDA device, the plain join elsewhere);
+- ``join_plain``: the plain join (``probe_dedupe_sorted_words_plain``: a
+  prefix count of table rows finds each position's last table row);
+- ``join_cummax``: the plain join with that row found by
+  ``torch.cummax``, the first design; its outputs must equal ``join``'s;
 - the join's own steps (``join_steps``): the stable sort of the tagged
   keys, the prefix count (``torch.cumsum``), the scatter back by the
   sort's permutation and the gathers of the table rows; beside them the
@@ -42,6 +45,16 @@ join's outputs must equal its plain version's (the same batch through
 ``encode_words_plain`` and the join on the CPU).  The encodes are not
 timed here: ``chip_smoke.py`` phase 4 times H1 and its composition.
 
+With ``--h4``, on the card only: kernel H4 (``sort_probe``) alone at the
+``marine35.deep`` cell's shape, beside the plain word join on the card: a
+key-sorted table of H4_ROWS random two-word keys (the cell's distinct
+35-mers: word 0 of 31 bases, word 1 of 4) and one batch of [65536, 126]
+windows (150-base reads on the 160-base row stride, 116 windows inside
+each read), 84% of the reads' windows table keys (0.5% substitutions
+over 35 bases), 5% repeating an earlier window of their read.  H4's
+outputs must equal the plain join's; its time is set beside its byte
+bound (``h4_bytes``) at 3.35 TB/s.
+
 Times are means over ``--iters`` calls, by CUDA events on a CUDA device;
 elsewhere by the host clock, which is no device metric.  The last line is
 one JSON object of every number.
@@ -66,7 +79,13 @@ from shotgun_tpu_torch.models.pipeline import _first_occurrence, _window_ok
 from shotgun_tpu_torch.ops.encode import encode_window, encode_words, pack_codes_2bit, word_spans
 from shotgun_tpu_torch.ops.probe import probe_kmers
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table, sorted_table_host
-from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted, probe_dedupe_sorted_words
+from shotgun_tpu_torch.ops.probe_sort2 import (
+    probe_dedupe_sorted,
+    probe_dedupe_sorted_words,
+    probe_dedupe_sorted_words_plain,
+    sort_probe,
+)
+from shotgun_tpu_torch.tools.bench_encode import bound_ms
 from shotgun_tpu_torch.utils.device import resolve_device
 from shotgun_tpu_torch.utils.synth import READ_LEN, STRAIN_LEN, strain_panel, strain_reads
 
@@ -77,6 +96,11 @@ WINDOWS = 130
 #: prices (chip_smoke's main path)
 SETS = 1 << 20
 RUN_READS = 524_288
+#: ``--h4``: the marine35.deep cell's table rows (the distinct 35-mers of
+#: its database) and batch: reads, windows a read on the 160-base row
+#: stride, windows inside a 150-base read; key words at k = 35
+H4_ROWS = 198_397_824
+H4_BATCH, H4_WINDOWS, H4_VALID, H4_WORDS = 65_536, 126, 116, 2
 
 
 def time_ms(fn: Callable[[], object], iters: int, device: torch.device) -> float:
@@ -247,6 +271,7 @@ def bench(tab: SortedTableDev, keys: torch.Tensor, query_ok: torch.Tensor,
     last = torch.where(order < u, order, -1)
     steps = {
         "join": lambda: probe_dedupe_sorted(tab, keys, query_ok),
+        "join_plain": lambda: probe_dedupe_sorted_words_plain(tab, (keys,), query_ok),
         "join_cummax": lambda: join_cummax(tab, keys, query_ok),
         **join_steps(tab, keys, query_ok),
         "sort_unstable": lambda: torch.sort(tagged),
@@ -309,6 +334,86 @@ def bench_words(k: int, genome_len: int, batch: int, iters: int, seed: int,
             "ms": {name: time_ms(fn, iters, device) for name, fn in steps.items()}}
 
 
+def h4_bytes(windows: int, nw: int) -> int:
+    """The bytes kernel H4 must move for ``windows`` windows of ``nw``-word
+    keys: each window's words and gate byte in, its hit, set id, genome
+    count and first occurrence out (10 B), and the row it finds, one 32 B
+    sector of each of its words, its set id and its genome count."""
+    return windows * (8 * nw + 1 + 10 + 32 * (nw + 2))
+
+
+def h4_table(rows: int, nw: int, device: torch.device, seed: int) -> SortedTableDev:
+    """A table of ``rows`` random keys of ``nw`` words in key order: word
+    0 of 62 bits (31 bases), each later word of 8 bits (4 bases, the tail
+    word at k = 35); set ids below SETS, genome counts 1 to 64."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def draw(high: int, dtype=torch.int64) -> torch.Tensor:
+        return torch.randint(0, high, (rows,), generator=gen, device=device, dtype=dtype)
+
+    words = [draw(1 << 62)] + [draw(256) for _ in range(nw - 1)]
+    order = None
+    for col in reversed(words):  # stable sorts, least significant word first
+        by = torch.sort(col if order is None else col[order], stable=True)[1]
+        order = by if order is None else order[by]
+    words = tuple(w[order] for w in words)
+    del order
+    return SortedTableDev(words, draw(SETS, torch.int32), 1 + draw(64, torch.int32))
+
+
+def h4_queries(tab: SortedTableDev, batch: int, windows: int, valid: int, seed: int,
+               hit_share: float = 0.84, repeat_share: float = 0.05) -> tuple:
+    """(words, query_ok) of one batch against ``tab``: [batch, windows]
+    words, ``hit_share`` of them a table row's key, the rest random (word 0
+    below 2**62, later words below 256), ``repeat_share`` repeating an
+    earlier window of their read; the first ``valid`` windows of each read
+    pass the gates."""
+    device = tab.sid.device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shape = (batch, windows)
+
+    def uniform() -> torch.Tensor:
+        return torch.rand(shape, generator=gen, device=device)
+
+    n = tab.sid.shape[0]
+    row = torch.randint(0, max(n, 1), shape, generator=gen, device=device)
+    keep = (uniform() < hit_share) & (n > 0)
+    rep = uniform() < repeat_share
+    rep[:, 0] = False
+    src = (uniform() * torch.arange(windows, device=device)).long()
+    words = []
+    for j, tw in enumerate(tab.words):
+        fresh = torch.randint(0, 1 << 62 if j == 0 else 256, shape, generator=gen,
+                              device=device)
+        q = torch.where(keep, tw[row.clamp(max=max(n - 1, 0))], fresh) if n else fresh
+        words.append(torch.where(rep, torch.gather(q, 1, src), q).contiguous())
+    ok = (torch.arange(windows, device=device) < valid).expand(shape).contiguous()
+    return tuple(words), ok
+
+
+def bench_h4(rows: int, nw: int, iters: int, seed: int, device: torch.device) -> dict:
+    """Kernel H4 and the plain word join at the cell's batch (module doc)."""
+    tab = h4_table(rows, nw, device, seed)
+    words, ok = h4_queries(tab, H4_BATCH, H4_WINDOWS, H4_VALID, seed + 1)
+    got = probe_dedupe_sorted_words(tab, words, ok)
+    want = probe_dedupe_sorted_words_plain(tab, words, ok)
+    names = ("hit", "sid", "gc", "first_occ")
+    res = {"table_rows": rows, "words": nw, "batch": [H4_BATCH, H4_WINDOWS],
+           "valid_windows": H4_VALID, "hits": int(got[0].sum()),
+           "first_occurrences": int(got[3].sum()),
+           "plain_equal": {n: torch.equal(g, w) for n, g, w in zip(names, got, want)}}
+    del got, want
+    res["ms"] = {"sort_probe": time_ms(lambda: sort_probe(tab, words, ok), iters, device),
+                 "plain": time_ms(lambda: probe_dedupe_sorted_words_plain(tab, words, ok),
+                                  max(1, iters // 10), device)}
+    res["bytes"] = h4_bytes(H4_BATCH * H4_WINDOWS, nw)
+    res["bound_ms"] = bound_ms(res["bytes"])
+    res["bound_share"] = res["bound_ms"] / res["ms"]["sort_probe"]
+    return res
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
@@ -321,7 +426,30 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--k", type=int, default=31,
                     help="above 31: the strain panel's word join against its k = 31 "
                          "join, on the card")
+    ap.add_argument("--h4", action="store_true",
+                    help="kernel H4 alone at the marine35.deep batch against the plain "
+                         "word join, on the card")
     args = ap.parse_args(argv)
+
+    if args.h4:
+        if not torch.cuda.is_available():
+            print("bench_sortjoin: --h4 needs the card; torch.cuda.is_available() is "
+                  "false", file=sys.stderr)
+            raise SystemExit(1)
+        device = torch.device("cuda", 0)
+        res = bench_h4(H4_ROWS, H4_WORDS, args.iters, args.seed, device)
+        out = {"device": str(device), "card": torch.cuda.get_device_name(device),
+               "timer": "cuda events", "runs": [res]}
+        print(f"H4 at [{H4_BATCH}, {H4_WINDOWS}], {H4_WORDS} words, {H4_ROWS} table "
+              f"rows: {res['ms']['sort_probe']:.4f} ms (plain join "
+              f"{res['ms']['plain']:.3f} ms), {res['bytes']} B, bound "
+              f"{res['bound_ms']:.4f} ms, {100 * res['bound_share']:.1f}% of it; "
+              f"{res['hits']} hits; equal to the plain join {res['plain_equal']}",
+              flush=True)
+        print(json.dumps(out), flush=True)
+        if not all(res["plain_equal"].values()):
+            raise SystemExit("bench_sortjoin: H4 differs from the plain join")
+        return out
 
     if args.k > 31:
         if not torch.cuda.is_available():

@@ -13,10 +13,11 @@ the host build -- each stage runs alone on inputs already on the device:
 1. ``encode``: on the sort route ``encode_words`` and the window mask
    (``_window_ok``), on the hash routes ``encode_window`` (kernel H1 on
    both);
-2. ``probe``: the sort join (``probe_dedupe_sorted_words``) whole, then
-   its own steps as ``tools/bench_sortjoin.py join_steps`` gives them
-   (``probe.sort_stable``, ``probe.cumsum``, ``probe.scatter_restore``,
-   ``probe.gather``); or ``probe_kmers`` (kernel H2) on the 4-slot
+2. ``probe``: the sort join (``probe_dedupe_sorted_words``: kernel H4 on
+   the card) whole, then the plain join's steps as
+   ``tools/bench_sortjoin.py join_steps`` gives them (``probe.sort_stable``,
+   ``probe.cumsum``, ``probe.scatter_restore``, ``probe.gather``); or
+   ``probe_kmers`` (kernel H2) on the 4-slot
    (``hash``) or 16-slot (``hash16``) host-built table;
 3. ``classify``: ``core_from_probe``.  On the hash routes it holds the
    within-read dedupe, which is also timed alone (``dedupe``:

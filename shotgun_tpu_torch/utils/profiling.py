@@ -15,7 +15,8 @@ across a generator's ``yield``, so each thread's spans nest.
 A device phase (``device_phase``) times the device's work instead of
 the host's: the sort join of a batch is ``sort_join`` (span) and
 ``sort_join_device`` (stat), beside the counter ``sort_join_rows`` (the
-table's rows plus the batch's windows that one join sorts).  The device
+batch's windows that one join reads; the table's rows no longer enter,
+since kernel H4 searches them in place).  The device
 build at k > 31 counts its key words in ``db_build_words``.
 """
 

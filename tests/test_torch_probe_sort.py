@@ -29,6 +29,7 @@ from shotgun_tpu_torch import convert
 from shotgun_tpu_torch.models import pipeline as tpipe
 from shotgun_tpu_torch.ops.encode import encode_words_plain
 from shotgun_tpu_torch.ops.probe_sort import SortedTableDev, sorted_table, sorted_table_host
+from shotgun_tpu_torch.ops import probe_sort2
 from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted, probe_dedupe_sorted_words
 
 torch.set_num_threads(2)
@@ -309,3 +310,203 @@ def test_align_batch_word_route_matches_jax(k, gates):
     for name, g, w in zip(want._fields, got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     assert (np.asarray(want.mtype) == 1).any()
+
+
+# --- kernel H4 (ops/kernels/csrc/sort_probe.cu) where the card is absent:
+# the wrapper's CPU route, and a numpy model of the kernel's algorithm
+# (its branch-free search and its blocks' dedupe) held to the plain join
+
+H4_KINDS = ["distinct", "repeated", "repeated, payloads differ", "empty"]
+ALL_T = (1 << 62) - 1
+
+
+def sort_probe_model(tab_words, sid, gc, q_words, ok, chunk=probe_sort2.H4_CHUNK):
+    """(hit, set_id, genome_count, first_occ, row) of kernel H4 as its
+    blocks compute them: each ok window's row is the count of table rows
+    whose key is at most its own, less one, by the kernel's branch-free
+    halving (a miss -1); a block owns ``chunk // W`` whole reads or one
+    read walked in chunks of ``chunk`` windows; a hit is a first
+    occurrence when no earlier window of its read in the chunk found its
+    row and, for a read past a chunk, no earlier gated-in window of the
+    earlier chunks has its key."""
+    nw, u = len(tab_words), sid.size
+    b, w = ok.shape
+    qf = [q.reshape(-1) for q in q_words]
+    okf = ok.reshape(-1)
+
+    def le(rows, f):  # table row <= window key, lexicographically
+        res, decided = np.ones(f.size, bool), np.zeros(f.size, bool)
+        for tw, q in zip(tab_words, qf):
+            a, x = tw[rows], q[f]
+            res = np.where(~decided & (a != x), a < x, res)
+            decided |= a != x
+        return res
+
+    def find(f):
+        base, n = np.zeros(f.size, np.int64), u
+        while n > 1:
+            half = n >> 1
+            base = np.where(le(base + half, f), base + half, base)
+            n -= half
+        row = base + le(base, f) - 1
+        rowc = np.maximum(row, 0)
+        hit = row >= 0
+        for tw, q in zip(tab_words, qf):
+            hit &= tw[rowc] == q[f]
+        return np.where(hit, row, -1)
+
+    row_out = np.full(b * w, -1, np.int64)
+    first = np.zeros(b * w, bool)
+    per_block = chunk // w if w <= chunk else 1
+    for read0 in range(0, b, per_block):
+        f0, span = read0 * w, min(per_block, b - read0) * w
+        for c0 in range(0, span, chunk):
+            f = f0 + c0 + np.arange(min(chunk, span - c0))
+            s_row = np.full(f.size, -1, np.int64)
+            live = okf[f] & (u > 0)
+            s_row[live] = find(f[live])
+            for i, row in enumerate(s_row):
+                if row < 0:
+                    continue
+                start = c0 + i - (c0 + i) % w
+                fo = not (s_row[max(start - c0, 0): i] == row).any()
+                if fo and start < c0:
+                    g = f0 + np.arange(start, c0)
+                    same = okf[g].copy()
+                    for q in qf:
+                        same &= q[g] == q[f[i]]
+                    fo = not same.any()
+                first[f[i]] = fo
+            row_out[f] = s_row
+    hit = row_out >= 0
+    rowc = np.maximum(row_out, 0)
+    return tuple(x.reshape(b, w) for x in (
+        hit, np.where(hit, sid[rowc] if u else 0, -1).astype(np.int32),
+        np.where(hit, gc[rowc] if u else 0, 0).astype(np.int32), first, row_out))
+
+
+def _run_rows(tab_words, q_words):
+    """Each window's last row of its key's run, or -1 where the table lacks
+    the key: ``np.searchsorted`` on word 0, narrowed on each later word."""
+    out = np.full(q_words[0].size, -1, np.int64)
+    for i, key in enumerate(zip(*(q.reshape(-1) for q in q_words))):
+        lo, hi = 0, tab_words[0].size
+        for tw, x in zip(tab_words, key):
+            part = tw[lo:hi]
+            lo, hi = lo + np.searchsorted(part, x, "left"), lo + np.searchsorted(part, x, "right")
+        if hi > lo:
+            out[i] = hi - 1
+    return out.reshape(q_words[0].shape)
+
+
+def _h4_case(rng, nw, kind, b=24, w=40):
+    """A key-sorted table of ``nw``-word keys (word 0 from few values, so
+    later words decide; the all-T 31-mer word among them) and [b, w]
+    windows: table keys, keys one word off, keys below the first row and
+    above the last, windows repeating an earlier one of their read, a
+    read of one key, gated windows (the all-T word among them) and a read
+    whose every window is gated."""
+    n = 400
+    cols = [rng.integers(1, 30, size=n)] + [rng.integers(0, 5, size=n) for _ in range(nw - 1)]
+    cols[0][:8] = ALL_T if kind == "distinct" else 30
+    keys = np.unique(np.stack(cols, 1), axis=0)          # lexicographic order
+    u = keys.shape[0]
+    sid = rng.integers(0, 1 << 20, size=u).astype(np.int32)
+    gc = rng.integers(1, 9, size=u).astype(np.int32)
+    if kind.startswith("repeated"):
+        idx = np.sort(np.concatenate([np.arange(u), rng.choice(u, size=u // 3)]))
+        keys, sid, gc = keys[idx], sid[idx], gc[idx]
+        if kind.endswith("differ"):  # the plain join reads a run's last row
+            sid, gc = sid + np.arange(sid.size, dtype=np.int32), gc + (np.arange(gc.size) % 3)
+    elif kind == "empty":
+        keys, sid, gc = keys[:0], sid[:0], gc[:0]
+    pick = keys[rng.integers(0, max(keys.shape[0], 1), size=b * w) % max(keys.shape[0], 1)] \
+        if keys.shape[0] else np.ones((b * w, nw), np.int64)
+    q = pick.copy()
+    draw = rng.random(b * w)
+    off = (draw > 0.5) & (draw < 0.7)                     # one word off by one
+    j = rng.integers(0, nw, size=b * w)
+    q[off, j[off]] += np.where(q[off, j[off]] > 0, -1, 1)
+    q[(draw >= 0.7) & (draw < 0.8), 0] = 0                # below the first row
+    q[(draw >= 0.8) & (draw < 0.9), 0] = ALL_T            # at or above the last
+    q[(draw >= 0.9), :] = rng.integers(0, 1 << 62, size=((draw >= 0.9).sum(), nw))
+    q = q.reshape(b, w, nw)
+    rep = rng.random((b, w)) < 0.15
+    rep[:, 0] = False
+    src = (rng.random((b, w)) * np.arange(w)).astype(np.int64)
+    q = np.where(rep[..., None], np.take_along_axis(q, src[..., None], 1), q)
+    q[2] = q[2, 0]                                        # a read of one key
+    ok = rng.random((b, w)) < 0.85
+    q[4, ::2, 0] = ALL_T                                  # the all-T word, gated and not
+    ok[4, ::4] = False
+    ok[3] = False
+    words = tuple(np.ascontiguousarray(q[..., i]) for i in range(nw))
+    return tuple(np.ascontiguousarray(keys[:, i]) for i in range(nw)), sid, gc, words, ok
+
+
+@pytest.mark.parametrize("chunk", [probe_sort2.H4_CHUNK, 7], ids=["reads a block", "chunked read"])
+@pytest.mark.parametrize("kind", H4_KINDS)
+@pytest.mark.parametrize("nw", [1, 2, 3])
+def test_sort_probe_model_matches_plain_join(nw, kind, chunk):
+    """The model of kernel H4 gives the plain join's four outputs; its rows
+    are each key's run's last row (``np.searchsorted`` on word 0, then
+    narrowed on each later word)."""
+    rng = np.random.default_rng(nw * 100 + H4_KINDS.index(kind) * 10 + (chunk == 7))
+    tw, sid, gc, qw, ok = _h4_case(rng, nw, kind)
+    tab = SortedTableDev(tuple(map(torch.from_numpy, tw)), torch.from_numpy(sid),
+                         torch.from_numpy(gc))
+    want = probe_dedupe_sorted_words(tab, tuple(map(torch.from_numpy, qw)),
+                                     torch.from_numpy(ok))
+    got = sort_probe_model(tw, sid, gc, qw, ok, chunk)
+    _assert_equal(got[:4], [x.numpy() for x in want])
+    rows = _run_rows(tw, qw) if sid.size else np.full(ok.shape, -1)
+    np.testing.assert_array_equal(got[4], np.where(ok, rows, -1))
+    hit, fo = got[0], got[3]
+    if kind == "empty":
+        assert not hit.any()
+    else:
+        assert hit.any() and (ok & ~hit).any() and (hit & ~fo).any()
+        assert fo[2].sum() == hit[2].any() and not hit[3].any()
+
+
+def test_probe_dedupe_sorted_words_takes_the_plain_join_on_the_cpu(monkeypatch):
+    """CPU tensors never reach kernel H4 or the kernel library."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU route reached the kernel")
+
+    monkeypatch.setattr(probe_sort2, "sort_probe", refuse)
+    monkeypatch.setattr(probe_sort2, "load_library", refuse)
+    tw, sid, gc, qw, ok = _h4_case(np.random.default_rng(5), 2, "repeated")
+    tab = SortedTableDev(tuple(map(torch.from_numpy, tw)), torch.from_numpy(sid),
+                         torch.from_numpy(gc))
+    args = (tab, tuple(map(torch.from_numpy, qw)), torch.from_numpy(ok))
+    got = probe_dedupe_sorted_words(*args)
+    want = probe_sort2.probe_dedupe_sorted_words_plain(*args)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    assert got[0].any()
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("cpu", "unsupported device"), ("words", "query words against a table of"),
+    ("dtype", "table sid must be torch.int32"), ("shape", "query word must be"),
+    ("strided", "query word must be contiguous")])
+def test_sort_probe_refuses_what_the_kernel_does_not_take(bad, match):
+    """``sort_probe`` (the kernel's launcher) raises before any launch: on
+    a CPU tensor, on a word count unlike the table's, on a dtype, a shape
+    or a layout it does not take."""
+    tw, sid, gc, qw, ok = _h4_case(np.random.default_rng(6), 2, "distinct")
+    tab = SortedTableDev(tuple(map(torch.from_numpy, tw)), torch.from_numpy(sid),
+                         torch.from_numpy(gc))
+    words, query_ok = tuple(map(torch.from_numpy, qw)), torch.from_numpy(ok)
+    if bad == "words":
+        words = words[:1]
+    elif bad == "dtype":
+        tab = tab._replace(sid=tab.sid.to(torch.int64))
+    elif bad == "shape":
+        query_ok = query_ok[:, :-1].contiguous()
+    elif bad == "strided":
+        words = (words[0], torch.empty_like(words[1]).t().contiguous().t().copy_(words[1]))
+    launches = probe_sort2.sort_probe.launches
+    with pytest.raises(ValueError, match=match):
+        probe_sort2.sort_probe(tab, words, query_ok)
+    assert probe_sort2.sort_probe.launches == launches

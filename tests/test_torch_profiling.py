@@ -19,6 +19,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from shotgun_tpu_torch import cli
+from shotgun_tpu_torch.aligner import _lpad
 from shotgun_tpu_torch.io import native
 from shotgun_tpu_torch.ops.kernels import build as kbuild
 from shotgun_tpu_torch.utils.profiling import PROFILER, Profiler, parse_report
@@ -359,8 +360,9 @@ def test_device_phase_off_cuda_takes_the_host_time():
 @pytest.mark.parametrize("k", [11, 35])
 def test_sort_join_is_a_device_phase_and_a_counter(registry, k):
     """Each batch on the sort join records ``sort_join_device`` and
-    ``sort_join_rows`` (the table's rows plus the batch's windows), and a
-    span ``sort_join`` inside ``enqueue``; the summary is unchanged."""
+    ``sort_join_rows`` (the batch's windows, padded reads included: the
+    table's rows no longer enter the join), and a span ``sort_join``
+    inside ``enqueue``; the summary is unchanged."""
     PROFILER.enabled = False
     ref = cli.dumpalign_reference(FA, k, False, 0.0, CPU)
     want = _sample(ref)
@@ -372,9 +374,10 @@ def test_sort_join_is_a_device_phase_and_a_counter(registry, k):
     assert stats["sort_join_device"].calls == batches
     assert 0 < stats["sort_join_device"].seconds <= stats["enqueue"].seconds
     rows = stats["sort_join_rows"]
-    table = ref.device_probe_tables(CPU).sid.shape[0]
+    with open(FQ) as fh:
+        longest = max(len(line.strip()) for i, line in enumerate(fh) if i % 4 == 1)
     assert rows.counter and rows.calls == batches
-    assert rows.items > batches * table
+    assert rows.items == batches * BATCH * (_lpad(longest, k) - k + 1)
     spans = _annotations(prof)
     enqueues = [s for s in spans if s[3] == "enqueue"]
     joins = [s for s in spans if s[3] == "sort_join"]

@@ -20,7 +20,7 @@ from shotgun_tpu_torch.io import native_available
 from shotgun_tpu_torch.reference import KmerReference
 from shotgun_tpu_torch.ops.encode import mix32_np
 from shotgun_tpu_torch.ops.probe import hash_probe_plain
-from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted
+from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted, probe_dedupe_sorted_words
 from shotgun_tpu_torch.tools import bench_probe, bench_sortjoin, profile_align
 from shotgun_tpu_torch.utils import synth
 
@@ -188,7 +188,7 @@ def test_bench_sortjoin_runs_on_cpu_and_reports_no_device_metric(capsys):
     for run in res["runs"]:
         assert run["cummax_equal"] and all(run["hash16_equal"].values())
         assert run["sorted_rows"] == run["keys"] + 48 * bench_sortjoin.WINDOWS
-        assert set(run["ms"]) == {"join", "join_cummax", "sort_stable",
+        assert set(run["ms"]) == {"join", "join_plain", "join_cummax", "sort_stable",
                                   "sort_unstable", "cummax", "cumsum",
                                   "scatter_restore", "gather", "hash16"}
 
@@ -201,6 +201,44 @@ def test_bench_sortjoin_words_exits_1_without_cuda(monkeypatch, capsys):
         bench_sortjoin.main(["--k", "75", "--iters", "1"])
     assert exc.value.code == 1
     assert "torch.cuda.is_available() is false" in capsys.readouterr().err
+
+
+def test_bench_sortjoin_h4_exits_1_without_cuda(monkeypatch, capsys):
+    """``--h4`` times kernel H4, which only the card has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        bench_sortjoin.main(["--h4", "--iters", "1"])
+    assert exc.value.code == 1
+    assert "torch.cuda.is_available() is false" in capsys.readouterr().err
+
+
+def test_bench_sortjoin_h4_bytes_at_the_cell_batch():
+    """H4's byte bound at the marine35.deep batch: 155 B a window, 1.28 GB,
+    0.38 ms at 3.35 TB/s."""
+    windows = bench_sortjoin.H4_BATCH * bench_sortjoin.H4_WINDOWS
+    assert windows == 8_257_536
+    assert bench_sortjoin.h4_bytes(windows, 2) == windows * 155 == 1_279_918_080
+    assert round(bench_sortjoin.bound_ms(bench_sortjoin.h4_bytes(windows, 2)), 2) == 0.38
+
+
+@pytest.mark.parametrize("nw", [1, 2, 3])
+def test_bench_sortjoin_h4_case_on_the_cpu(nw):
+    """The ``--h4`` table is in key order, word by word, and its batch
+    hits about the asked share of the windows inside the reads, repeats
+    keys within reads and gates the windows past them."""
+    tab = bench_sortjoin.h4_table(5000, nw, CPU, 11)
+    key = torch.stack(tab.words, 1)
+    diff = key[1:] - key[:-1]
+    first = torch.where(diff != 0, torch.arange(nw).expand_as(diff), nw).amin(1)
+    assert bool(((first == nw) | (diff.gather(1, first.clamp(max=nw - 1)[:, None])[:, 0] > 0)
+                 ).all())
+    assert bool((tab.gc >= 1).all()) and tab.sid.dtype == torch.int32
+    words, ok = bench_sortjoin.h4_queries(tab, 64, 30, 24, 12)
+    assert len(words) == nw and words[0].shape == ok.shape == (64, 30)
+    assert bool(ok[:, :24].all()) and not ok[:, 24:].any()
+    hit, sid, gc, fo = probe_dedupe_sorted_words(tab, words, ok)
+    assert 0.75 < hit[:, :24].float().mean() < 0.93 and not hit[:, 24:].any()
+    assert int(hit.sum()) > int(fo.sum()) > 0
 
 
 @pytest.mark.parametrize("k", [35, 75])
