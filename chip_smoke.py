@@ -179,15 +179,9 @@ Phases, one line each:
      process (and of 12b's child, sampled from outside), and kernel
      launches.
 
- 13. the port's benchmark and profilers (``shotgun_tpu_torch/tools/``), each
-     in a child process on the card: ``bench`` at its defaults (the JAX
-     repo's BASELINE workload: 5 x 200 kbp, 524,288 error-free reads at
-     B = 32768, the sort join) and with ``--probe hash16 --devbuild-mbp 0``:
-     the stream's statistics sum to the reads, the staged totals and the
-     align task's summary equal the stream's, every rate is positive, H1
-     (and H2 on hash16) launched once a staged batch; then
-     ``profile_stages`` on the sort and hash16 routes and
-     ``profile_devbuild 1 32``.  Each one's figures, and the phase's time.
+ 13. the device-build profiler (``shotgun_tpu_torch/tools/profile_devbuild``)
+     in a child process on the card, ``profile_devbuild 1 32``: its
+     figures, and the phase's time.
 
 Then one JSON line of per-kernel results and, last, the device line.  Any
 failure raises and exits non-zero; so does a machine without CUDA, and a
@@ -209,9 +203,8 @@ the 4-slot one (launched on the `hash` routes) as two modes.  Phase 12
 adds a mode to each: H1 on the 100 Mbp genome row and H2 on its 2^25-bucket
 table, with their launches on 12a's hash16 path (build, assembly, align).
 Each kernel's launches on every path (the main path, the strain-panel
-routes, the later phases' runs, phase 11's mesh paths, phase 12's
-stages and the staged batches of phase 13's bench runs, each counted from
-0) are listed too.  No single
+routes, the later phases' runs, phase 11's mesh paths and phase 12's
+stages, each counted from 0) are listed too.  No single
 PyTorch call computes any kernel's function, so ``library_ms`` is null,
 with the reason beside it.
 """
@@ -2395,10 +2388,8 @@ def phase_100mbp_words(device) -> dict:
     return {"12c bulk_proof part b (k=75, 1 x 1 mesh)": launches}
 
 
-#: phase 13: each tool child's time limit, s
+#: phase 13: the tool child's time limit, s
 P13_TIMEOUT = 600
-#: phase 13: the bench's probes of a read (150 - 31 + 1 windows)
-P13_WINDOWS = READ_LEN - K + 1
 
 
 def run_tool(module: str, *args: str) -> tuple:
@@ -2417,86 +2408,19 @@ def run_tool(module: str, *args: str) -> tuple:
     return json.loads(out.stdout.strip().splitlines()[-1]), wall
 
 
-def check_bench(head: dict, probe: str) -> dict:
-    """Phase 13's checks of one bench headline: the stream's statistics add
-    up to the reads, the staged totals and the align task's summary equal
-    the stream's, the rates are positive, the kernels ran, and the route's
-    staged batches launched H1 (and H2 on a hash table).  The staged
-    launches."""
-    extra = head["extra"]
-    if head["metric"] != "pseudo_align_reads_per_sec_k31" or "error" in extra:
-        raise AssertionError(f"13: bench {probe}: {head}")
-    stats = extra["stream_statistics"]
-    if sum(stats.values()) != N_READS:
-        raise AssertionError(f"13: bench {probe}: statistics {stats} != {N_READS} reads")
-    want = {"unique": stats["unique_mapped_reads"],
-            "ambiguous": stats["ambiguous_mapped_reads"], "unmapped": stats["unmapped_reads"]}
-    if extra["staged_totals"] != want or extra["align_task_summary_equal"] is not True:
-        raise AssertionError(f"13: bench {probe}: staged {extra['staged_totals']}, "
-                             f"stream {want}, align task {extra['align_task_summary_equal']}")
-    rates = (head["value"], extra["end_to_end_reads_per_sec"], extra["kmer_probes_per_sec"])
-    if not min(rates) > 0 or extra["kmer_probes_per_sec"] != head["value"] * P13_WINDOWS:
-        raise AssertionError(f"13: bench {probe}: rates {rates}")
-    if not isinstance(extra["kernels"], dict) or not isinstance(extra["cold_start"], dict):
-        raise AssertionError(f"13: bench {probe}: kernels {extra['kernels']}, "
-                             f"cold start {extra['cold_start']}")
-    launches = extra["kernel_launches"]["staged"]
-    batches = extra["staged_batches"]
-    if launches != {"encode_window": batches,
-                    "hash_probe": batches if probe != "sort" else 0}:
-        raise AssertionError(f"13: bench {probe}: staged launches {launches}")
-    return launches
-
-
-def say_bench(label: str, head: dict, wall: float) -> None:
-    extra = head["extra"]
-    kern = extra["kernels"]
-    say(f"phase {label} ({wall:.3f} s, {extra['device']}): staged {head['value']:.1f} "
-        f"reads/s ({extra['probe_table']['type']}), {extra['kmer_probes_per_sec']:.1f} "
-        f"probes/s, first batch {extra['first_batch_s']:.4f} s; stream median "
-        f"{extra['end_to_end_reads_per_sec']:.1f} reads/s (passes "
-        f"{extra['e2e_pass_times_s']}); align task {extra['align_task_reads_per_sec']:.1f} "
-        f"reads/s, dumpalign -a {extra['dumpalign_a_s']:.4f} s; host build "
-        f"{extra['db_build_mbp_per_sec']:.3f} Mbp/s, device build "
-        f"{extra['db_build_device_mbp_per_sec']:.3f} Mbp/s; H1 "
-        f"{kern['encode_window']['ms']:.4f} ms ({kern['encode_window']['bound_share']:.3f} "
-        f"of its bound; plain {kern['encode_window']['plain_ms']:.4f} ms), H2 "
-        f"{kern['hash_probe']['ms']:.4f} ms ({kern['hash_probe']['bound_share']:.3f}; plain "
-        f"{kern['hash_probe']['plain_ms']:.4f} ms); stages ms {extra['stage_profile_ms']}, "
-        f"device ms {extra['stage_profile_device_ms']}")
-    say(json.dumps(head))
-
-
-def phase_bench() -> dict:
-    """Phase 13: the port's benchmark at its defaults (the BASELINE
-    workload on the sort join) and on the 16-slot table without the
-    32 Mbp builds, then the stage profiler on the sort and hash16 routes
-    and the device-build profiler at 1 and 32 Mbp, each in a child on the
-    card.  Returns {path: launches} of the bench's staged batches."""
+def phase_devbuild_profile() -> None:
+    """Phase 13: the device-build profiler at 1 and 32 Mbp, in a child on
+    the card."""
     t13 = time.perf_counter()
-    by_path = {}
-    for label, probe, args in (("13a bench", "sort", ()),
-                               ("13b bench", "hash16", ("--probe", "hash16",
-                                                        "--devbuild-mbp", "0"))):
-        head, wall = run_tool("bench", *args)
-        by_path[f"{label} {probe} staged"] = check_bench(head, probe)
-        say_bench(f"{label} {probe}", head, wall)
-    for probe in ("sort", "hash16"):
-        res, wall = run_tool("profile_stages", "--probe", probe)
-        say(f"phase 13c profile_stages {probe} ({wall:.3f} s): fused {res['fused_ms']:.4f} "
-            f"ms a batch of {res['batch'][0]}, sum of stages {res['sum_ms']:.4f} ms, "
-            f"{res['reads_per_s_at_fused']:.1f} reads/s at fused (device ms); ms {res['ms']}, "
-            f"device ms {res['device_ms']}")
     res, wall = run_tool("profile_devbuild", "1", "32")
     for size in res["sizes"]:
-        say(f"phase 13d profile_devbuild {size['mbp']:g} Mbp ({wall:.3f} s in all): host "
+        say(f"phase 13 profile_devbuild {size['mbp']:g} Mbp ({wall:.3f} s in all): host "
             f"prep {size['host_prep_s']:.4f} s, " + "; ".join(
                 f"upload {it['upload_s']:.4f} compute {it['compute_s']:.4f} fetch "
                 f"{it['fetch_s']:.4f} s" for it in size["iters"])
             + f"; from_device_build warm {size['from_device_build_s']:.4f} s "
             f"({size['num_kmers']} k-mers)")
     say(f"phase 13 in {time.perf_counter() - t13:.3f} s")
-    return by_path
 
 
 def main() -> int:
@@ -2627,8 +2551,8 @@ def main() -> int:
         say(f"phase 12 in {time.perf_counter() - t12:.3f} s")
     torch.cuda.empty_cache()
 
-    # 13. the port's benchmark and stage profilers, each in a child
-    by_path.update(phase_bench())
+    # 13. the device-build profiler, in a child
+    phase_devbuild_profile()
 
     # H3's path is phase 9's MKQ run, the others' the main path
     word_path = f"k={K_WORDS} strains dumpalign -g, random quality, MKQ {WORD_MKQ}"

@@ -246,31 +246,6 @@ extern "C" int stpu_fastq_fill(const uint8_t* d, int64_t n, uint8_t* codes,
   return OK;
 }
 
-// ---------------------------------------------------------------------------
-// FASTQ streaming fill (chunked): parse/pack overlapped with device compute
-// ---------------------------------------------------------------------------
-//
-// After a successful stpu_fastq_scan (which validates the WHOLE input --
-// duplicate ids, unparsed data, length mismatches -- and sizes the output),
-// the stream API re-walks the input in record chunks so the Python caller
-// can hand each chunk to the accelerator while the next one fills.  Record
-// ids are not materialized (the scan already enforced uniqueness); the
-// caller uses the scan's n_records/max_len for shapes.
-
-// The stream parses incrementally from a byte cursor -- no up-front
-// split_lines pass, no Line vector, no ASCII pre-scan.  The whole-input
-// contracts stay enforced by stpu_fastq_scan (run before, or -- in the
-// lazy-overlap path -- concurrently on another thread, in which case any
-// validation failure discards the streamed results); on scanned-valid
-// input the cursor walk visits exactly the scan's 4-line groups.  On
-// not-yet-validated input the walk is overrun-safe and terminates (the
-// cursor is strictly monotone), which is all the lazy path needs.
-struct FastqStream {
-  const uint8_t* d;
-  int64_t n;
-  int64_t pos;  // byte cursor (start of the next unread line)
-};
-
 // Advance *pos past one line; [*s, *e) is the content span (\r?\n
 // excluded).  Returns false at end of input.
 inline bool next_line(const uint8_t* d, int64_t n, int64_t* pos, int64_t* s,
@@ -291,125 +266,11 @@ inline bool next_line(const uint8_t* d, int64_t n, int64_t* pos, int64_t* s,
   return true;
 }
 
-extern "C" void* stpu_fastq_stream_open(const uint8_t* d, int64_t n) {
-  return new FastqStream{d, n, 0};
-}
-
-namespace {
-
-// Pull the next 4-line record group starting at the cursor.  Mirrors the
-// scan's resync rule cheaply: a line that does not open a group ('@'
-// head + '+' third line) is skipped and scanning resumes at the next
-// line.  Full per-character class validation is NOT repeated here -- the
-// scan owns it; on scanned-valid input every line opens a group exactly
-// where the scan matched one.
-inline bool next_group(const uint8_t* d, int64_t n, int64_t* pos, Line* seq,
-                       Line* qual) {
-  int64_t l0s, l0e;
-  while (next_line(d, n, pos, &l0s, &l0e)) {
-    if (l0e <= l0s || d[l0s] != '@') continue;
-    const int64_t resync = *pos;  // next line after the '@' head
-    int64_t s1, e1, s2, e2, s3, e3;
-    if (!next_line(d, n, pos, &s1, &e1) || !next_line(d, n, pos, &s2, &e2) ||
-        !next_line(d, n, pos, &s3, &e3)) {
-      *pos = n;
-      return false;
-    }
-    if (e2 <= s2 || d[s2] != '+') {
-      *pos = resync;
-      continue;
-    }
-    seq->start = s1;
-    seq->end = e1;
-    qual->start = s3;
-    qual->end = e3;
-    return true;
-  }
-  return false;
-}
-
-}  // namespace
-
-// Fill up to max_records records into row-major [max_records, lmax] buffers.
-// Returns the number of records written (0 at end of input), or -1 when a
-// record exceeds lmax -- the same LmaxExceeded contract as the packed
-// variant, so lazy callers whose lmax is a first-record guess can retry at
-// a wider stride instead of silently receiving truncated sequences
-// (ADVICE.md r3 #3).
-extern "C" int64_t stpu_fastq_stream_next(void* handle, int64_t max_records,
-                                          uint8_t* codes, uint8_t* qual,
-                                          int32_t* lengths, int64_t lmax) {
-  auto* s = (FastqStream*)handle;
-  const uint8_t* d = s->d;
-  Line ls, lq;
-  int64_t rec = 0;
-  while (rec < max_records && next_group(d, s->n, &s->pos, &ls, &lq)) {
-    int64_t sl = ls.end - ls.start;
-    int64_t ql = lq.end - lq.start;
-    if (sl > lmax || ql > lmax) return -1;
-    lengths[rec] = (int32_t)sl;
-    uint8_t* crow = codes + rec * lmax;
-    for (int64_t j = 0; j < sl; ++j) crow[j] = T.code[d[ls.start + j]];
-    std::memcpy(qual + rec * lmax, d + lq.start, (size_t)ql);
-    ++rec;
-  }
-  return rec;
-}
-
-// Packed variant: codes are written 2-bit packed (4 bases/byte, little
-// bit-pairs -- the layout of shotgun_tpu.ops.encode.pack_codes_2bit) into
-// row-major [max_records, lmax/4] buffers, and the quality plane is
-// OPTIONAL (pass qual == nullptr when no quality gate consumes it).  This
-// is the transfer-diet fill: the accelerator unpacks on device, so the
-// host never materializes the 1-byte-per-base plane at all.
-//
-// Unlike stpu_fastq_stream_next, this fill is SAFE on unvalidated input
-// (the lazy-scan overlap path runs it concurrently with the validating
-// scan): a record longer than lmax returns -1 instead of overrunning the
-// row, and the caller restarts with a bigger stride.
-extern "C" int64_t stpu_fastq_stream_next_packed(
-    void* handle, int64_t max_records, uint8_t* codes_packed, uint8_t* qual,
-    int32_t* lengths, int64_t lmax) {
-  auto* s = (FastqStream*)handle;
-  const uint8_t* d = s->d;
-  const int64_t stride = lmax / 4;
-  Line ls, lq;
-  int64_t rec = 0;
-  while (rec < max_records && next_group(d, s->n, &s->pos, &ls, &lq)) {
-    int64_t sl = ls.end - ls.start;
-    int64_t ql = lq.end - lq.start;
-    if (sl > lmax || ql > lmax) return -1;
-    lengths[rec] = (int32_t)sl;
-    uint8_t* crow = codes_packed + rec * stride;
-    const uint8_t* src = d + ls.start;
-    int64_t j = 0;
-    for (; j + 4 <= sl; j += 4) {
-      crow[j >> 2] = (uint8_t)(T.code[src[j]] | (T.code[src[j + 1]] << 2) |
-                               (T.code[src[j + 2]] << 4) |
-                               (T.code[src[j + 3]] << 6));
-    }
-    if (j < sl) {
-      uint8_t acc = 0;
-      for (int64_t t = 0; j + t < sl; ++t)
-        acc |= (uint8_t)(T.code[src[j + t]] << (2 * t));
-      crow[j >> 2] = acc;
-    }
-    if (qual)
-      std::memcpy(qual + rec * lmax, d + lq.start, (size_t)ql);
-    ++rec;
-  }
-  return rec;
-}
-
-extern "C" void stpu_fastq_stream_close(void* handle) {
-  delete (FastqStream*)handle;
-}
-
 // ---------------------------------------------------------------------------
 // Validating packed stream: the whole-input contract (structure, character
 // classes, duplicate ids, length equality, unparsed data) is enforced IN
-// the fill pass itself, so lazy callers need no separate whole-input scan
-// thread.  Detection is complete but statuses are advisory: ANY nonzero
+// the fill pass itself, so a lazy caller needs no whole-input scan before
+// it.  Detection is complete but statuses are advisory: ANY nonzero
 // status makes the Python caller rerun the input through the regex engine,
 // which raises the reference's exact error type and message
 // (io/data_file.py).

@@ -17,7 +17,6 @@ construction.
 from __future__ import annotations
 
 import gzip
-import os
 from typing import FrozenSet, Optional
 
 from shotgun_tpu_torch.io import native
@@ -120,20 +119,23 @@ class FASTAQFile(DataFile):
 
 
 class FASTAQStream:
-    """Streaming FASTQ source: validate once, fill record chunks on demand.
+    """Streaming FASTQ source: fill record chunks on demand, validating
+    as it fills.
 
-    The pipeline-parallel input path (SURVEY.md §2.2 PP row): the native
-    scanner validates the whole file up front (same duplicate-id /
-    unparsed-data / length-mismatch contracts as the full parse), then
-    ``chunks`` fills packed [chunk, lmax] arrays one batch at a time so the
-    caller can overlap host parse/pack with async device dispatch.  Record
-    ids are never materialized as Python strings -- per-record ``.decode``
-    calls are the dominant cost of the full parse at bench scale.
+    The pipeline-parallel input path (SURVEY.md §2.2 PP row):
+    ``chunks_packed`` fills packed [chunk, lmax] arrays one batch at a
+    time so the caller can overlap host parse/pack with async device
+    dispatch, and the native fill enforces the full parse's contracts
+    (duplicate ids, unparsed data, length mismatches) while it packs.
+    Record ids are never materialized as Python strings -- per-record
+    ``.decode`` calls are the dominant cost of the full parse at bench
+    scale.
 
     Use ``open_fastq_stream``; anything the native fast path cannot serve
-    (missing lib, non-ASCII input, any validation failure) returns None so
-    the caller falls back to ``FASTAQFile``, whose regex engine reproduces
-    the reference's exact error types and messages.
+    (missing lib, non-ASCII input, any validation failure) returns None or
+    raises ``NativeParseError`` from the fill, so the caller falls back to
+    ``FASTAQFile``, whose regex engine reproduces the reference's exact
+    error types and messages.
     """
 
     EXTENSIONS = FASTAQFile.EXTENSIONS
@@ -145,22 +147,13 @@ class FASTAQStream:
             )
         raw = DataFile._read_bytes(file_path)  # gzip.BadGzipFile propagates
         self._raw = raw
-        self._scan_thread = None
-        self._scan_result = None
-        self._vfill = False
         if lazy:
-            # lazy mode: until validation completes, max_len is a PEEK at
-            # the first record and num_records is unknown.  Default: the
-            # VALIDATING native fill (chunks_vpacked) enforces the
-            # whole-input contract inside the fill pass itself, on
-            # native.fill_threads() threads;
-            # SHOTGUN_TPU_VFILL=0 restores the overrun-safe plain fill
-            # with the validation scan on a worker thread.  Either way a
-            # validation failure discards the run (the caller falls back
-            # to the regex engine for exact errors).
+            # lazy mode: no up-front scan, so max_len is a PEEK at the
+            # first record and num_records is unknown; a validation
+            # failure in the fill discards the run (the caller falls back
+            # to the regex engine for exact errors)
             if not native.available():
                 raise native.NativeParseError(native.STATUS_NON_ASCII, 0, 0)
-            self._vfill = os.environ.get("SHOTGUN_TPU_VFILL", "1") == "1"
             self.num_records: Optional[int] = None
             self.max_len: int = self._peek_first_len(raw)
             return
@@ -189,41 +182,14 @@ class FASTAQStream:
         return self._raw
 
     def start_validation(self) -> None:
-        """Kick off the whole-input native scan on a worker thread (the
-        ctypes call releases the GIL, so it overlaps the fill loop).
-        No-op under the validating fill: the fill pass itself enforces
-        the contract and raises during iteration."""
-        if (self._vfill or self._scan_thread is not None
-                or self.num_records is not None):
-            return
-        import threading
-
-        def run():
-            try:
-                self._scan_result = native.fastq_scan(self._raw)
-            except native.NativeParseError as exc:
-                self._scan_result = exc
-
-        self._scan_thread = threading.Thread(target=run, daemon=True)
-        self._scan_thread.start()
+        """Marks where validation starts: the first fill of ``chunks_packed``."""
 
     def finish_validation(self) -> None:
-        """Join the scan; raise NativeParseError if the input is invalid
-        (callers discard the streamed results and fall back)."""
-        if self._scan_thread is not None:
-            self._scan_thread.join()
-            self._scan_thread = None
-            res = self._scan_result
-            if isinstance(res, native.NativeParseError):
-                raise res
-            if res is None:
-                raise native.NativeParseError(native.STATUS_NON_ASCII, 0, 0)
-            self.num_records = res.n_records
-            self.max_len = res.max_len
+        """Marks where validation ends: a drained ``chunks_packed`` has checked it all."""
 
     def est_records(self) -> int:
-        """Record-count estimate for pipeline sizing: exact after
-        validation; before it, a byte-budget guess from the first
+        """Record-count estimate for pipeline sizing: exact after the
+        up-front scan; in lazy mode, a byte-budget guess from the first
         record's line length (a FASTQ record is ~2*L sequence/quality
         bytes plus header/separator overhead)."""
         if self.num_records is not None:
@@ -231,23 +197,14 @@ class FASTAQStream:
         per_record = 2 * max(self.max_len, 1) + 36
         return max(len(self._raw) // per_record, 1)
 
-    def chunks(self, chunk_records: int, lmax: int):
-        """Yield (codes, qual, lengths, n_filled) with row stride ``lmax``
-        (must be >= ``self.max_len``); fresh zeroed arrays per chunk."""
-        return native.fastq_stream_chunks(self._raw, chunk_records, lmax)
-
     def chunks_packed(self, chunk_records: int, lmax: int, with_qual: bool):
         """Yield (codes_2bit [C, lmax/4], qual-or-dummy, lengths, n_filled):
         the transfer-diet form -- codes arrive device-unpackable 2-bit
         packed straight from the native fill, and the quality plane is
-        only materialized when a quality gate will consume it.  Under the
-        validating fill (lazy default) the generator also enforces the
-        whole-input contract, raising NativeParseError mid-iteration on
-        invalid input."""
-        if self._vfill:
-            return native.fastq_stream_chunks_vpacked(
-                self._raw, chunk_records, lmax, with_qual)
-        return native.fastq_stream_chunks_packed(
+        only materialized when a quality gate will consume it.  The
+        generator also enforces the whole-input contract, raising
+        NativeParseError mid-iteration on invalid input."""
+        return native.fastq_stream_chunks_vpacked(
             self._raw, chunk_records, lmax, with_qual)
 
 
@@ -259,9 +216,8 @@ def open_fastq_stream(
     for invalid inputs, where the regex engine raises the reference's exact
     errors).  InvalidExtensionError and gzip.BadGzipFile propagate.
 
-    ``lazy``: skip the up-front scan; validation overlaps the align loop
-    (a validation failure then surfaces as NativeParseError from
-    ``finish_validation`` mid-run, and the caller falls back)."""
+    ``lazy``: skip the up-front scan; an invalid input then surfaces as
+    NativeParseError from the fill mid-run, and the caller falls back."""
     try:
         return FASTAQStream(file_path, lazy=lazy)
     except native.NativeParseError:

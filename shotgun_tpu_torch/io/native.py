@@ -88,16 +88,6 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.stpu_fasta_scan.argtypes = [u8p, ctypes.c_int64, i64p]
         lib.stpu_fasta_fill.restype = ctypes.c_int
         lib.stpu_fasta_fill.argtypes = [u8p, ctypes.c_int64, u8p, i64p, i64p, u8p]
-        lib.stpu_fastq_stream_open.restype = ctypes.c_void_p
-        lib.stpu_fastq_stream_open.argtypes = [u8p, ctypes.c_int64]
-        lib.stpu_fastq_stream_next.restype = ctypes.c_int64
-        lib.stpu_fastq_stream_next.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, u8p, u8p, i32p, ctypes.c_int64]
-        lib.stpu_fastq_stream_next_packed.restype = ctypes.c_int64
-        lib.stpu_fastq_stream_next_packed.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, u8p, u8p, i32p, ctypes.c_int64]
-        lib.stpu_fastq_stream_close.restype = None
-        lib.stpu_fastq_stream_close.argtypes = [ctypes.c_void_p]
         lib.stpu_fastq_vstream_open.restype = ctypes.c_void_p
         lib.stpu_fastq_vstream_open.argtypes = [u8p, ctypes.c_int64]
         lib.stpu_fastq_vstream_next_packed.restype = ctypes.c_int64
@@ -263,84 +253,6 @@ def fastq_scan(data: bytes) -> Optional[FastqScanInfo]:
     return FastqScanInfo(int(info[0]), max(int(info[1]), 1))
 
 
-def fastq_stream_chunks(data: bytes, chunk_records: int, lmax: int):
-    """Yield (codes [C, lmax] u8, qual [C, lmax] u8, lengths [C] i32,
-    n_filled) chunks of a scanned-valid FASTQ buffer.
-
-    MUST be called only after ``fastq_scan`` returned OK for ``data`` (the
-    stream fill assumes a validated input and performs no error checks).
-    Fresh zeroed arrays are allocated per chunk so padding rows/columns are
-    zero -- required by the device quality gates.  The generator keeps
-    ``data`` alive for the lifetime of the native stream handle.
-    """
-    lib = _load()
-    assert lib is not None, "fastq_stream_chunks requires the native lib"
-    p, n = _as_u8(data)
-    handle = lib.stpu_fastq_stream_open(p, n)
-    assert handle, "stream open failed on scanned-valid input"
-    try:
-        while True:
-            codes = np.zeros((chunk_records, lmax), dtype=np.uint8)
-            qual = np.zeros((chunk_records, lmax), dtype=np.uint8)
-            lengths = np.zeros(chunk_records, dtype=np.int32)
-            got = lib.stpu_fastq_stream_next(
-                handle, chunk_records,
-                _ptr(codes, ctypes.c_uint8), _ptr(qual, ctypes.c_uint8),
-                _ptr(lengths, ctypes.c_int32), lmax,
-            )
-            if got < 0:
-                # same contract as the packed fill: a record wider than
-                # lmax raises instead of silently truncating
-                raise LmaxExceeded(lmax)
-            if got == 0:
-                return
-            yield codes, qual, lengths, int(got)
-            if got < chunk_records:
-                return
-    finally:
-        lib.stpu_fastq_stream_close(handle)
-
-
-def fastq_stream_chunks_packed(data: bytes, chunk_records: int, lmax: int,
-                               with_qual: bool):
-    """Like ``fastq_stream_chunks`` but codes arrive 2-bit packed
-    ([C, lmax/4] uint8, the device-unpack layout of
-    ops.encode.unpack_codes_2bit) and the quality plane is filled only
-    when ``with_qual`` (otherwise a shared zero [C, 1] dummy is yielded).
-    lmax must be a multiple of 4.  Same must-be-scanned-valid contract.
-    """
-    lib = _load()
-    assert lib is not None, "requires the native lib"
-    assert lmax % 4 == 0
-    p, n = _as_u8(data)
-    handle = lib.stpu_fastq_stream_open(p, n)
-    assert handle, "stream open failed on scanned-valid input"
-    null_u8 = ctypes.POINTER(ctypes.c_uint8)()
-    dummy = np.zeros((chunk_records, 1), dtype=np.uint8)
-    try:
-        while True:
-            with phase("fill"):
-                codes = np.zeros((chunk_records, lmax // 4), dtype=np.uint8)
-                qual = (np.zeros((chunk_records, lmax), dtype=np.uint8)
-                        if with_qual else dummy)
-                lengths = np.zeros(chunk_records, dtype=np.int32)
-                got = lib.stpu_fastq_stream_next_packed(
-                    handle, chunk_records,
-                    _ptr(codes, ctypes.c_uint8),
-                    _ptr(qual, ctypes.c_uint8) if with_qual else null_u8,
-                    _ptr(lengths, ctypes.c_int32), lmax,
-                )
-            if got < 0:
-                raise LmaxExceeded(lmax)
-            if got == 0:
-                return
-            yield codes, qual, lengths, int(got)
-            if got < chunk_records:
-                return
-    finally:
-        lib.stpu_fastq_stream_close(handle)
-
-
 #: the validating fill's thread cap (``shotgun_io.cpp kMaxThreads``)
 MAX_FILL_THREADS = 8
 FILL_THREADS_ENV = "SHOTGUN_TPU_FILL_THREADS"
@@ -358,13 +270,20 @@ def fill_threads() -> int:
 
 def fastq_stream_chunks_vpacked(data: bytes, chunk_records: int, lmax: int,
                                 with_qual: bool, n_threads: Optional[int] = None):
-    """Validating form of ``fastq_stream_chunks_packed``: the native fill
-    enforces the whole-input contract itself (structure, character
-    classes, duplicate ids, length equality, unparsed data) while
-    packing, on ``n_threads`` threads (default ``fill_threads()``): a
-    chunk of 4,096 records or more has its structure walk split into
-    byte ranges and its encode into rows, with the serial walk's output
-    -- no separate whole-input scan pass needed.  Raises NativeParseError
+    """Yield (codes [C, lmax/4] u8, qual, lengths [C] i32, n_filled)
+    chunks of a FASTQ buffer, validating it as they fill.  Codes arrive
+    2-bit packed (the device-unpack layout of
+    ops.encode.unpack_codes_2bit) and the quality plane [C, lmax] is
+    filled only when ``with_qual`` (otherwise a shared zero [C, 1] dummy
+    is yielded); lmax must be a multiple of 4 and fresh zeroed arrays
+    are allocated per chunk, so padding is zero as the device quality
+    gates need.  The native fill enforces the whole-input contract
+    itself (structure, character classes, duplicate ids, length
+    equality, unparsed data) while packing, on ``n_threads`` threads
+    (default ``fill_threads()``): a chunk of 4,096 records or more has
+    its structure walk split into byte ranges and its encode into rows,
+    with the serial walk's output -- no separate whole-input scan pass
+    needed.  Raises NativeParseError
     on invalid input (statuses advisory: the caller reruns through the
     regex engine for the reference's exact errors) and LmaxExceeded when
     a record exceeds the stride.  The final yield is followed by an

@@ -502,7 +502,6 @@ for mod in pkgutil.walk_packages(shotgun_tpu_torch.__path__, "shotgun_tpu_torch.
 import shotgun_tpu_torch.parallel.distributed, shotgun_tpu_torch.parallel.mesh
 import shotgun_tpu_torch.parallel.table_sharded, shotgun_tpu_torch.tools.dryrun
 import shotgun_tpu_torch.tools.bulk_proof, shotgun_tpu_torch.tools.devbuild_proof
-import shotgun_tpu_torch.tools.bench, shotgun_tpu_torch.tools.profile_stages
 import shotgun_tpu_torch.tools.profile_devbuild
 # every import chip_smoke.py makes, at its top and inside its functions
 with open("chip_smoke.py") as fh:

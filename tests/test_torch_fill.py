@@ -4,7 +4,8 @@ structure walk split into byte ranges, on the CPU: chunk by chunk the
 same codes, quality, lengths and record counts as the serial walk
 (``n_threads=1``) and the JAX package's fill, on inputs large enough to
 split; the same exception, status and chunks before it on invalid inputs;
-and the thread count's default and override.  Tolerance 0 throughout."""
+and the thread count's default and override; a stream scanned up front
+fills as a lazy one.  Tolerance 0 throughout."""
 
 import functools
 import os
@@ -250,3 +251,28 @@ def test_stream_walks_split_by_default(monkeypatch, tmp_path, registry, env, spl
     assert sum(c[3] for c in stream.chunks_packed(5000, LMAX, False)) == READS
     assert _walks(registry) == {
         "fill_walk_split" if split else "fill_walk_serial": (4, READS)}
+
+
+@pytest.mark.parametrize("with_qual", [False, True])
+def test_scanned_stream_fills_as_the_lazy_stream(tmp_path, with_qual):
+    """``lazy=False`` scans the input up front for its exact record count
+    and longest read, then fills through the same validating fill as
+    ``lazy=True``: the same chunks, byte for byte."""
+    path = os.path.join(tmp_path, "reads.fq")
+    with open(path, "wb") as fh:
+        fh.write(_fastq(_reads(seed=6)))
+    scanned = data_file.open_fastq_stream(path)
+    lazy = data_file.open_fastq_stream(path, lazy=True)
+    assert (scanned.num_records, scanned.max_len) == (READS, LMAX)
+    assert lazy.num_records is None
+
+    def chunks(stream):
+        stream.start_validation()
+        out = [(c.tobytes(), q.tobytes(), n.tobytes(), got)
+               for c, q, n, got in stream.chunks_packed(4500, LMAX, with_qual)]
+        stream.finish_validation()
+        return out
+
+    got = chunks(scanned)
+    assert sum(c[3] for c in got) == READS
+    assert got == chunks(lazy)

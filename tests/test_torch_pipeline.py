@@ -187,28 +187,55 @@ def _workload(seed, n_reads=256, read_len=60, genome_len=2000):
     return genomes, reads
 
 
+def _shared_workload(seed):
+    """Genomes whose second one opens with a stretch of the first (reads
+    there map ambiguously) and reads a quarter of which are random (they
+    miss): unique, ambiguous and unmapped reads without mutations."""
+    rng = np.random.default_rng(seed)
+    genomes = synth_genomes(rng, 3, 2000)
+    genomes.codes[2000:2600] = genomes.codes[:600]
+    reads = synth_reads(rng, genomes, 128, 60)
+    reads.codes[::4] = rng.integers(0, 4, size=reads.codes[::4].shape)
+    reads.qual[:] = rng.integers(60, 91, size=reads.qual.shape)
+    return genomes, reads
+
+
 def _tables(index, kind):
-    """JAX HashTableDev of the given kind: the JAX package's 4-slot table,
-    or a 3-slot table at one key a bucket, whose overflow fills a stash."""
+    """A JAX table of the given kind, the port's copy of it and the set
+    members: the JAX package's sort join or 4-slot table, or a 3-slot
+    table at one key a bucket, whose overflow fills a stash."""
     jref = JaxKmerReference(index.k, _index=index)
+    member = jref.set_member_dense()
+    if kind == "sort":
+        jtab = jref.device_probe_tables("sort")
+        return jtab, convert.sorted_table(jtab, CPU), member
     if kind == "hash":
-        return jref.device_probe_tables("hash"), jref.set_member_dense()
+        jtab = jref.device_probe_tables("hash")
+        return jtab, convert.hash_table(jtab, CPU), member
     pt = build_probe_table(index.kmer_lo, index.kmer_hi, index.set_id,
                            index.genome_counts(), slots_per_bucket=3)
     assert pt.stash.shape[0] > 0
     from shotgun_tpu.ops.probe import HashTableDev as JaxHashTableDev
 
-    return (JaxHashTableDev(jnp.asarray(pt.table), jnp.asarray(pt.stash)),
-            jref.set_member_dense())
+    jtab = JaxHashTableDev(jnp.asarray(pt.table), jnp.asarray(pt.stash))
+    return jtab, convert.hash_table(jtab, CPU), member
 
 
-@pytest.mark.parametrize("kind", ["hash", "stash"])
-@pytest.mark.parametrize("gates", [GATES[0], GATES[-1]])
-def test_align_fold_batch_matches_jax(kind, gates):
+#: (kind, gates, workload): the mutated workload on every table under no
+#: gate and every gate, and the shared-stretch one on the sort join and
+#: the 4-slot table
+FOLD_CASES = [
+    pytest.param(kind, gates, "mutated", id=f"gates{i}-{kind}")
+    for i, gates in enumerate([GATES[0], GATES[-1]])
+    for kind in ["hash", "stash", "sort"]
+] + [pytest.param(kind, GATES[0], "shared", id=f"shared-{kind}") for kind in ["sort", "hash"]]
+
+
+@pytest.mark.parametrize("kind,gates,workload", FOLD_CASES)
+def test_align_fold_batch_matches_jax(kind, gates, workload):
     k, lpad, b = 21, 64, 64
-    genomes, reads = _workload(11)
-    jtab, member = _tables(build_index(genomes, k), kind)
-    tab = convert.hash_table(jtab, CPU)
+    genomes, reads = _workload(11) if workload == "mutated" else _shared_workload(15)
+    jtab, tab, member = _tables(build_index(genomes, k), kind)
     params = (1, 1, 70, 74, 2)
     has = dict(has_mrq=gates[0], has_mkq=gates[1], has_mg=gates[2])
 
@@ -232,14 +259,19 @@ def test_align_fold_batch_matches_jax(kind, gates):
             _t(qual) if gates[0] or gates[1] else None, _t(lengths),
             *params, k=k, **has)
         _assert_fields_equal(carry, jax.device_get(jcarry))
-    assert int(carry.counters[0]) > 0 and int(carry.counters[1]) > 0
+    unique, ambiguous, unmapped = carry.counters[:3].tolist()
+    assert unique > 0 and ambiguous > 0
+    assert unmapped > 0 or workload == "mutated"
 
 
-@pytest.mark.parametrize("gates", [(None, None, None), (72, 75, 2)])
-def test_align_stream_matches_jax_hash16(tmp_path, monkeypatch, gates):
+@pytest.mark.parametrize("route,gates", [
+    pytest.param(route, gates, id=f"{prefix}gates{i}")
+    for route, prefix in [("hash16", ""), ("sort", "sort-")]
+    for i, gates in enumerate([(None, None, None), (72, 75, 2)])])
+def test_align_stream_matches_jax_hash16(tmp_path, monkeypatch, route, gates):
     """The whole slice: port vs JAX align_stream on a k = 31 workload with
-    the probe forced to the 16-slot table."""
-    monkeypatch.setenv("SHOTGUN_TPU_PROBE", "hash16")
+    the probe forced to the 16-slot table, and to the sort join."""
+    monkeypatch.setenv("SHOTGUN_TPU_PROBE", route)
     k = 31
     genomes, reads = _workload(12, n_reads=300, read_len=100, genome_len=3000)
     fq = tmp_path / "reads.fq"
@@ -253,7 +285,7 @@ def test_align_stream_matches_jax_hash16(tmp_path, monkeypatch, gates):
     pa = PseudoAlignment(ref, CPU)
     pa.align_stream(tdf.open_fastq_stream(str(fq), lazy=True), 1, 1, *gates,
                     batch_size=64)
-    assert ref.probe_method() == "hash16"
+    assert ref.probe_method() == route
     assert pa.get_summary() == jpa.get_summary()
     stats = pa.get_summary()["Statistics"]
     assert stats["unique_mapped_reads"] and stats["ambiguous_mapped_reads"]

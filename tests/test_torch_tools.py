@@ -1,7 +1,7 @@
 """The port's workload generator (shotgun_tpu_torch.utils.synth), its
 reference built straight from genome arrays, and the profiling tools
-(shotgun_tpu_torch.tools.profile_align, .bench_sortjoin, .bench_probe)
-on the CPU."""
+(shotgun_tpu_torch.tools.profile_align, .bench_sortjoin, .bench_probe,
+.profile_devbuild) on the CPU."""
 
 import json
 import os
@@ -12,16 +12,20 @@ import torch
 
 from shotgun_tpu.aligner import PseudoAlignment as JaxPseudoAlignment
 from shotgun_tpu.index.build import build_index
+from shotgun_tpu.index.device_build import device_build_tables as jax_device_build
 from shotgun_tpu.io.data_file import open_fastq_stream
 from shotgun_tpu.reference import KmerReference as JaxKmerReference
+from shotgun_tpu.utils.synth import synth_genomes
+from shotgun_tpu_torch import convert
 from shotgun_tpu_torch.aligner import PseudoAlignment
+from shotgun_tpu_torch.index import device_build as tdb
 from shotgun_tpu_torch.io import data_file as tdf
 from shotgun_tpu_torch.io import native_available
 from shotgun_tpu_torch.reference import KmerReference
 from shotgun_tpu_torch.ops.encode import mix32_np
 from shotgun_tpu_torch.ops.probe import hash_probe_plain
 from shotgun_tpu_torch.ops.probe_sort2 import probe_dedupe_sorted, probe_dedupe_sorted_words
-from shotgun_tpu_torch.tools import bench_probe, bench_sortjoin, profile_align
+from shotgun_tpu_torch.tools import bench_probe, bench_sortjoin, profile_align, profile_devbuild
 from shotgun_tpu_torch.utils import synth
 
 torch.set_num_threads(2)
@@ -279,6 +283,42 @@ def test_bench_probe_exits_1_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         bench_probe.main(["--iters", "1"])
+    assert exc.value.code == 1
+    assert "torch.cuda.is_available() is false" in capsys.readouterr().err
+
+
+def test_profile_devbuild_product_matches_device_builds():
+    """The build profile_devbuild's steps make equals the port's
+    ``device_build_tables`` and, key by key, the JAX package's device
+    build (keys, genome counts, set membership)."""
+    res = profile_devbuild.profile(0.1, CPU, log=lambda _: None)
+    built = res["built"]
+    genomes = profile_devbuild.make_genomes(0.1)
+    assert genomes.num_records == 5 and genomes.codes.size == 100_000
+    want = tdb.device_build_tables(genomes, 31, CPU)
+    assert set(want) - set(built) == {"num_records", "num_windows", "prep_s"}
+    for name, g in built.items():
+        w = want[name]
+        assert (torch.equal(g, w) if isinstance(g, torch.Tensor)
+                else np.array_equal(g, w)), name
+    jgen = synth_genomes(np.random.default_rng(0), 5, 20000)
+    jt = convert.device_build(jax_device_build(jgen, 31, JaxKmerReference._pad_rows), CPU)
+    np.testing.assert_array_equal(built["keys"].numpy(), jt["keys"].numpy())
+    np.testing.assert_array_equal(built["gc"].numpy(), jt["gc"].numpy())
+    bits = [np.unpackbits(m, axis=1, bitorder="little")[:, :5] for m in
+            (built["set_masks"], jt["set_masks"])]
+    np.testing.assert_array_equal(bits[0][built["sid"].numpy()], bits[1][jt["sid"].numpy()])
+    assert res["num_kmers"] == built["num_kmers"] == 5 * (20000 - 30)
+    assert len(res["iters"]) == 3 and res["from_device_build_s"] > 0
+
+
+def test_profile_devbuild_exits_1_without_cuda(monkeypatch, capsys):
+    """Without CUDA and with no device asked for, the tool exits 1 before
+    it measures anything, and says why."""
+    monkeypatch.delenv("SHOTGUN_TPU_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        profile_devbuild.main([])
     assert exc.value.code == 1
     assert "torch.cuda.is_available() is false" in capsys.readouterr().err
 
