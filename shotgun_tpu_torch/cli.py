@@ -208,9 +208,10 @@ def create_alignment_from_reference(
     batch_size: int = DEFAULT_BATCH_SIZE, store_reads: bool = False,
     mesh: Optional[Mesh] = None,
 ) -> PseudoAlignment:
-    """The stream route (native fill, validation inside the fill); an
-    input the native scanner rejects is re-read through the regex engine,
-    which raises the reference's exact errors.  ``store_reads``: the align
+    """The stream route (native fill, validation inside the fill, over
+    the file's mapping, released once the stream is done); an input the
+    native scanner rejects is re-read through the regex engine, which
+    raises the reference's exact errors.  ``store_reads``: the align
     task's read store.  With a ``mesh`` (dumpalign only), the JAX CLI's
     mesh route: the reads parsed whole (the container route), every
     process holding the batch, and aligned sharded over the mesh."""
@@ -231,6 +232,8 @@ def create_alignment_from_reference(
             return alignment
         except NativeParseError:
             pass
+        finally:
+            stream.close()
     with phase("fastq_parse"):
         reads_container = FASTAQFile(reads_file).container
     alignment = PseudoAlignment(kmer_reference, device)

@@ -17,7 +17,10 @@ construction.
 from __future__ import annotations
 
 import gzip
-from typing import FrozenSet, Optional
+import mmap
+import os
+import stat
+from typing import FrozenSet, Optional, Union
 
 from shotgun_tpu_torch.io import native
 from shotgun_tpu_torch.io.records import (
@@ -26,6 +29,7 @@ from shotgun_tpu_torch.io.records import (
     NoRecordsInData,
     SchemaParser,
 )
+from shotgun_tpu_torch.utils.profiling import PROFILER
 
 
 class InvalidExtensionError(Exception):
@@ -131,6 +135,14 @@ class FASTAQStream:
     ``.decode`` calls are the dominant cost of the full parse at bench
     scale.
 
+    The stream does not copy a plain file: a regular, non-empty file
+    whose name does not end in ``.gz`` is mapped read-only, and the fill
+    and the id pass read the mapping (counter ``stream_mapped``, its
+    bytes); any other input -- gzip, an empty file, a FIFO, a file
+    ``mmap`` refuses -- is read whole as ``FASTAQFile`` reads it (counter
+    ``stream_read``).  ``close`` releases the mapping.  A file truncated
+    or rewritten while it is aligned is outside the contract.
+
     Use ``open_fastq_stream``; anything the native fast path cannot serve
     (missing lib, non-ASCII input, any validation failure) returns None or
     raises ``NativeParseError`` from the fill, so the caller falls back to
@@ -145,7 +157,7 @@ class FASTAQStream:
             raise InvalidExtensionError(
                 f"Invalid file extension. Expected one of {set(self.EXTENSIONS)}, got {file_path}"
             )
-        raw = DataFile._read_bytes(file_path)  # gzip.BadGzipFile propagates
+        raw = self._open_input(file_path)  # gzip.BadGzipFile propagates
         self._raw = raw
         if lazy:
             # lazy mode: no up-front scan, so max_len is a PEEK at the
@@ -164,7 +176,41 @@ class FASTAQStream:
         self.max_len = info.max_len
 
     @staticmethod
-    def _peek_first_len(raw: bytes) -> int:
+    def _open_input(file_path: str) -> Union[bytes, mmap.mmap]:
+        """A read-only mapping of a plain regular file that is not empty,
+        else the whole input as ``DataFile._read_bytes`` reads it, from
+        the one ``open`` (so a FIFO's writer is read once)."""
+        if file_path.endswith(".gz"):
+            raw = DataFile._read_bytes(file_path)
+        else:
+            with open(file_path, "rb") as fh:
+                st = os.fstat(fh.fileno())
+                if stat.S_ISREG(st.st_mode) and st.st_size > 0:
+                    try:
+                        mapped = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+                    except (OSError, ValueError):  # ValueError: emptied since fstat
+                        pass
+                    else:
+                        PROFILER.count("stream_mapped", len(mapped))
+                        return mapped
+                raw = fh.read()
+        PROFILER.count("stream_read", len(raw))
+        return raw
+
+    def close(self) -> None:
+        """Release the mapping; a no-op for an input read whole and after
+        the first call.  Call it only once the fill and the id pass are
+        done: while one still holds a pointer into the mapping, ``mmap``
+        refuses (``BufferError``) and the mapping goes with the last
+        pointer."""
+        if isinstance(self._raw, mmap.mmap):
+            try:
+                self._raw.close()
+            except BufferError:
+                pass
+
+    @staticmethod
+    def _peek_first_len(raw: Union[bytes, mmap.mmap]) -> int:
         """Length of the first record's sequence line (0 if malformed) --
         the lazy-mode initial stride guess; longer records retry."""
         i1 = raw.find(b"\n")
@@ -176,9 +222,10 @@ class FASTAQStream:
             end -= 1
         return max(end - i1 - 1, 0)
 
-    def raw_bytes(self) -> bytes:
-        """The full input buffer (the streamed align task extracts ids
-        from it in one native side pass after validation)."""
+    def raw_bytes(self) -> Union[bytes, mmap.mmap]:
+        """The full input buffer, the mapping or the bytes (the streamed
+        align task extracts ids from it in one native side pass after
+        validation)."""
         return self._raw
 
     def start_validation(self) -> None:

@@ -326,6 +326,9 @@ def fastq_stream_chunks_vpacked(data: bytes, chunk_records: int, lmax: int,
             yield codes, qual, lengths, int(got)
     finally:
         lib.stpu_fastq_vstream_close(handle)
+        # let go of the input at once, not with a traceback that still
+        # holds this frame: a mapped input closes only once unexported
+        del p
 
 
 def build_kmer_index(codes: np.ndarray, offsets: np.ndarray, k: int):

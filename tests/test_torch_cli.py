@@ -4,21 +4,27 @@ every probe route and on the device database build, and the runlog cases
 at k = 31, 75 and 150), a .kdb written by the JAX package's CLI, the
 device-build gate, the probe routes at k > 31 and for unknown values, k < 1,
 the multi-process environment and the one-process mesh, the error contracts of tests/test_cli.py, a
-guard that the port runs with jax and the JAX package unimportable, and the
-library entry points' default device."""
+guard that the port runs with jax and the JAX package unimportable, the
+library entry points' default device, and the stream's input: a plain
+``.fq`` mapped and released with the route, anything else read whole."""
 
+import gc
 import gzip
 import json
 import os
 import subprocess
 import sys
+import threading
+import time
 
+import numpy as np
 import pytest
 import torch
 
 from shotgun_tpu import cli as jax_cli
 from shotgun_tpu_torch import cli
 from shotgun_tpu_torch.aligner import PseudoAlignment
+from shotgun_tpu_torch.io import data_file
 from shotgun_tpu_torch.io.data_file import FASTAFile
 from shotgun_tpu_torch.reference import KmerReference
 from shotgun_tpu_torch.utils.profiling import PROFILER
@@ -299,6 +305,171 @@ def test_gzip_inputs_match_plain_golden(tmp_path, capsys):
     assert capsys.readouterr().out == _golden("plain")
     cli.main(["-t", "dumpref", "-g", fagz, "-k", "11"])
     assert capsys.readouterr().out == _golden("dumpref")
+
+
+CPU = torch.device("cpu")
+
+
+def _ends(run):
+    """The summary ``run()``'s alignment gives, as the JSON that prints
+    it reads back, or the (type, message) of what it raises."""
+    try:
+        return json.loads(json.dumps(run().get_summary()))
+    except Exception as exc:
+        return type(exc).__name__, str(exc)
+
+
+def _stream_counters(stats):
+    return {k: (st.calls, st.items) for k, st in stats.items()
+            if st.counter and k.startswith("stream_")}
+
+
+def _corpus_reads() -> bytes:
+    with open(FQ, "rb") as fh:
+        return fh.read()
+
+
+def _write(path, data: bytes) -> None:
+    with open(path, "wb") as fh:
+        fh.write(data)
+
+
+@pytest.mark.parametrize("kind", ["gz", "bad gz", "empty", "fifo"])
+def test_stream_reads_whole_what_it_cannot_map(kind, tmp_path, stages):
+    """A ``.fq.gz``, an empty ``.fq`` and a FIFO are read whole (counter
+    ``stream_read``, never ``stream_mapped``), and the stream route ends
+    as the JAX package's: the plain golden's summary, or the same
+    exception type and message (``NoRecordsInDataFile`` for the empty
+    file, ``BadGzipFile`` for a ``.gz`` that is not gzip).  The FIFO's
+    feeder gives the reads once to each open of it."""
+    data = _corpus_reads()
+    path = str(tmp_path / ("reads.fq.gz" if "gz" in kind else "reads.fq"))
+    if kind == "gz":
+        with gzip.open(path, "wb") as fh:
+            fh.write(data)
+    elif kind == "bad gz":
+        _write(path, data)
+    elif kind == "empty":
+        _write(path, b"")
+    else:
+        os.mkfifo(path)
+
+    def fed(run):
+        if kind != "fifo":
+            return _ends(run)
+        done = threading.Event()
+
+        def feed():  # the reads once to every open of the FIFO, until the run ends
+            while not done.is_set():
+                try:
+                    _write(path, data)
+                except BrokenPipeError:
+                    pass
+                while not done.is_set():  # until the reader has closed it
+                    try:
+                        os.close(os.open(path, os.O_WRONLY | os.O_NONBLOCK))
+                    except OSError:  # ENXIO: no reader
+                        break
+                    time.sleep(0.01)
+
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        try:
+            return _ends(run)
+        finally:
+            done.set()
+            os.close(os.open(path, os.O_RDONLY | os.O_NONBLOCK))  # frees a waiting open
+            feeder.join(timeout=60)
+            assert not feeder.is_alive()
+
+    ref = cli.create_reference(FA, 11, False, 0.95, CPU)
+    PROFILER.enable()
+    got = fed(lambda: cli.create_alignment_from_reference(ref, path, CPU, 1, 1,
+                                                          None, None, None))
+    counted = _stream_counters(stages)
+    PROFILER.enabled = False
+    if kind != "fifo":  # the FIFO's reads are the plain golden's
+        jref = jax_cli.create_reference(FA, 11)
+        assert got == _ends(lambda: jax_cli.create_alignment_from_reference(
+            jref, path, 1, 1, None, None, None))
+    if kind in ("gz", "fifo"):
+        assert got == json.loads(_golden("plain"))
+        assert counted == {"stream_read": (1, len(data))}
+    elif kind == "empty":
+        assert got == ("NoRecordsInDataFile", f"No valid records found in file: {path}")
+        assert counted == {"stream_read": (1, 0)}
+    else:
+        assert got[0] == "BadGzipFile" and counted == {}
+
+
+@pytest.mark.parametrize("reads", ["valid", "duplicate id"])
+def test_stream_mapping_is_released_with_the_route(reads, tmp_path, monkeypatch, stages):
+    """A plain ``.fq`` is mapped (counter ``stream_mapped``, its bytes),
+    and the mapping is released once ``create_alignment_from_reference``
+    returns, and once the fill's ``NativeParseError`` has sent an invalid
+    input to the regex engine, which raises the JAX package's error.
+    Reference counts alone release it here (no collector runs), as they
+    must between two collections.  A second ``close`` does nothing."""
+    data = _corpus_reads()
+    if reads == "duplicate id":
+        data += b"".join(data.splitlines(keepends=True)[:4])
+    path = str(tmp_path / "reads.fq")
+    _write(path, data)
+    opened = []
+
+    def spy(*args, **kwargs):
+        opened.append(data_file.open_fastq_stream(*args, **kwargs))
+        return opened[-1]
+
+    monkeypatch.setattr(cli, "open_fastq_stream", spy)
+    ref = cli.create_reference(FA, 11, False, 0.95, CPU)
+    PROFILER.enable()
+    gc.disable()
+    try:
+        got = _ends(lambda: cli.create_alignment_from_reference(
+            ref, path, CPU, 1, 1, None, None, None, batch_size=16))
+        (stream,) = opened
+        assert stream.raw_bytes().closed
+    finally:
+        gc.enable()
+    stream.close()
+    assert stream.raw_bytes().closed
+    assert _stream_counters(stages) == {"stream_mapped": (1, len(data))}
+    PROFILER.enabled = False
+    jref = jax_cli.create_reference(FA, 11)
+    assert got == _ends(lambda: jax_cli.create_alignment_from_reference(
+        jref, path, 1, 1, None, None, None, batch_size=16))
+    if reads == "valid":
+        assert got == json.loads(_golden("plain"))
+    else:
+        assert got[0] == "DuplicateRecordError"
+
+
+def test_align_task_store_from_a_mapping_equals_the_read_one(tmp_path, stages):
+    """The align task's read store (``store_reads=True``: ids from the
+    native pass over the input, mapping lists) from a mapped ``.fq``
+    equals the one from the same reads read whole out of a ``.fq.gz``,
+    member by member of the saved ``.aln``."""
+    data = _corpus_reads()
+    plain, packed = str(tmp_path / "reads.fq"), str(tmp_path / "reads.fq.gz")
+    _write(plain, data)
+    with gzip.open(packed, "wb") as fh:
+        fh.write(data)
+    ref = cli.create_reference(FA, 11, False, 0.95, CPU)
+    PROFILER.enable()
+    saved = []
+    for i, path in enumerate((plain, packed)):
+        stages.clear()
+        aln = cli.create_alignment_from_reference(ref, path, CPU, 1, 1, None, None,
+                                                  None, batch_size=16, store_reads=True)
+        assert list(_stream_counters(stages)) == [("stream_mapped", "stream_read")[i]]
+        assert len(aln._read_ids) == data.count(b"\n") // 4
+        aln.save(str(tmp_path / f"{i}.aln"))
+        with np.load(str(tmp_path / f"{i}.aln")) as npz:
+            saved.append({k: npz[k] for k in npz.files})
+    assert saved[0].keys() == saved[1].keys()
+    for k in saved[0]:
+        assert np.array_equal(saved[0][k], saved[1][k]), k
 
 
 def test_bad_extension(tmp_path, capsys):

@@ -59,10 +59,14 @@ def _fastq(reads, crlf=False, lead=False):
 def _fill(mod, data, chunk, lmax, with_qual, **kw):
     """([(codes, qual, lengths, n)] as bytes, the outcome): None at the
     end of the input, else ("parse", status) or "lmax"."""
+    return _drain(mod, mod.fastq_stream_chunks_vpacked(data, chunk, lmax, with_qual, **kw))
+
+
+def _drain(mod, chunks):
+    """``_fill``'s result of the chunks of ``mod``'s fill."""
     out = []
     try:
-        for codes, qual, lengths, got in mod.fastq_stream_chunks_vpacked(
-                data, chunk, lmax, with_qual, **kw):
+        for codes, qual, lengths, got in chunks:
             out.append((codes.tobytes(), qual.tobytes(), lengths.tobytes(), got))
     except mod.NativeParseError as exc:
         return out, ("parse", exc.status)
@@ -276,3 +280,41 @@ def test_scanned_stream_fills_as_the_lazy_stream(tmp_path, with_qual):
     got = chunks(scanned)
     assert sum(c[3] for c in got) == READS
     assert got == chunks(lazy)
+
+
+#: the invalid inputs the mapped stream is held to: a duplicate id across
+#: chunks, a truncated last record, a length mismatch
+MAPPED_INVALID = ["duplicate in two chunks", "truncated final group",
+                  "length mismatch in the last chunk"]
+
+
+@pytest.mark.parametrize("nt", THREADS)
+def test_mapped_stream_fills_as_the_bytes_read_whole(nt, tmp_path, registry, monkeypatch):
+    """A plain ``.fq`` is mapped, not read (counter ``stream_mapped``, its
+    bytes), and ``chunks_packed`` over the mapping yields, chunk for
+    chunk, the fill over the file's bytes read whole: on every valid
+    input shape, and on invalid inputs the same status after the same
+    chunks.  The fill's pointer into the mapping goes with its end."""
+    monkeypatch.setenv(native.FILL_THREADS_ENV, str(nt))
+    cases = [(name, chunk, _fastq(_reads(seed=len(name)), crlf=name == "crlf",
+                                  lead=name == "leading blanks"), LMAX)
+             for name, chunk in VALID]
+    cases += [(case, 5000) + _invalid(case) for case in MAPPED_INVALID]
+    for i, (name, chunk, data, lmax) in enumerate(cases):
+        path = os.path.join(tmp_path, f"reads{i}.fq")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        for with_qual in (False, True):
+            registry.stats.clear()
+            stream = data_file.FASTAQStream(path, lazy=True)
+            counted = {k: (st.calls, st.items) for k, st in registry.stats.items()
+                       if k.startswith("stream_")}
+            assert counted == {"stream_mapped": (1, len(data))}, name
+            assert stream.raw_bytes()[:] == data
+
+            got = _drain(native, stream.chunks_packed(chunk, lmax, with_qual))
+            want = _fill(native, data, chunk, lmax, with_qual, n_threads=nt)
+            assert got == want, (name, with_qual)
+            assert (got[1] is None) == (name not in MAPPED_INVALID), name
+            stream.close()
+            assert stream.raw_bytes().closed
